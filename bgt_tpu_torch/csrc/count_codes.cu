@@ -30,6 +30,10 @@
 // the result is deterministic and exact) and accumulate in shared memory,
 // three ints per group per warp, so register use does not grow with the
 // group count.  The row offset of a range query is a kernel argument.
+// Groups are counted in chunks of at most kMaxGroupsPerLaunch per launch, so
+// those accumulators stay within the default 48 KB of dynamic shared memory
+// at any group count; past 512 groups the planes are read once per chunk,
+// where the popcounts, not the reads, already bound the kernel.
 //
 // Interface: a plain C entry point (bgt_count_codes) bound with ctypes.  It
 // launches on the caller's stream, does not synchronise, allocates nothing,
@@ -44,6 +48,8 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kTileWordsPerLane = 8;  // K: 256 words of each plane per tile
 constexpr unsigned kFull = 0xffffffffu;
+// 8 warps x 512 groups x 3 sums x 4 bytes = 48 KB of shared memory
+constexpr int kMaxGroupsPerLaunch = 512;
 
 // |m_g| for every group: one block per group.
 __global__ void mask_popcount_kernel(const uint32_t* __restrict__ masks,
@@ -69,7 +75,8 @@ count_codes_kernel(const uint32_t* __restrict__ p0,
                    const uint32_t* __restrict__ masks,
                    const int* __restrict__ mask_pop,
                    int4* __restrict__ out,
-                   long long row_start, int rows, int words, int groups) {
+                   long long row_start, int rows, int words, int groups,
+                   int out_groups) {
   constexpr int K = kTileWordsPerLane;
   extern __shared__ unsigned acc_all[];  // [warp][group][3]
   const int warp = threadIdx.x >> 5;
@@ -121,7 +128,7 @@ count_codes_kernel(const uint32_t* __restrict__ p0,
       const int nb = (int)acc[g * 3 + 2];
       const int c1 = n10 - nb;
       const int c2 = n11 - nb;
-      out[(size_t)r * groups + g] = make_int4(mask_pop[g] - c1 - c2 - nb, c1, c2, nb);
+      out[(size_t)r * out_groups + g] = make_int4(mask_pop[g] - c1 - c2 - nb, c1, c2, nb);
     }
     __syncwarp();
   }
@@ -142,10 +149,16 @@ extern "C" int bgt_count_codes(const void* p0, const void* p1, const void* masks
   if (err != cudaSuccess) return (int)err;
   const long long want = ((long long)rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const int blocks = (int)(want < (1 << 20) ? want : (1 << 20));
-  const size_t smem = (size_t)kWarpsPerBlock * groups * 3 * sizeof(unsigned);
-  count_codes_kernel<<<blocks, kThreads, smem, s>>>(
-      static_cast<const uint32_t*>(p0), static_cast<const uint32_t*>(p1),
-      static_cast<const uint32_t*>(masks), static_cast<const int*>(mask_pop),
-      static_cast<int4*>(out), row_start, rows, words, groups);
-  return (int)cudaGetLastError();
+  for (int g0 = 0; g0 < groups; g0 += kMaxGroupsPerLaunch) {
+    const int gn = groups - g0 < kMaxGroupsPerLaunch ? groups - g0 : kMaxGroupsPerLaunch;
+    const size_t smem = (size_t)kWarpsPerBlock * gn * 3 * sizeof(unsigned);
+    count_codes_kernel<<<blocks, kThreads, smem, s>>>(
+        static_cast<const uint32_t*>(p0), static_cast<const uint32_t*>(p1),
+        static_cast<const uint32_t*>(masks) + (size_t)g0 * words,
+        static_cast<const int*>(mask_pop) + g0, static_cast<int4*>(out) + g0,
+        row_start, rows, words, gn, groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

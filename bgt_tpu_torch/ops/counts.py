@@ -9,8 +9,16 @@ site_stats, counts_to_numpy).  For packed planes p0, p1 and column masks m_g:
 
 Planes and masks are uint32 words on disk; here they are int32 tensors
 holding the same bits, because torch has no popcount and does not shift
-uint32 on the CPU.  On a CUDA tensor every count runs the hand-written kernel
-in ``csrc/count_codes.cu``; on a CPU tensor the plain PyTorch version below.
+uint32 on the CPU.  On a CUDA tensor each op runs its hand-written kernel
+from ``csrc/``; on a CPU tensor the plain PyTorch version beside it:
+
+- ``count_codes``/``count_codes_range``: ``csrc/count_codes.cu``, any
+  group count (the production kernel);
+- ``count_raw``/``count_raw_range``: the raw n10, n11, nb of one mask,
+  ``csrc/count_raw.cu`` (the roofline probe's streaming kernel);
+- ``count_codes_narrow``: the counts of ``count_codes`` for at most 32
+  groups whose masks fit in one block's shared memory,
+  ``csrc/count_narrow.cu`` (several rows per warp, for narrow rows).
 """
 
 from __future__ import annotations
@@ -18,8 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Launches of the CUDA kernel by count_codes_range, counted where it launches.
-LAUNCHES = {"count_codes": 0}
+# Launches of each CUDA kernel, counted by its wrapper where it launches it.
+LAUNCHES = {"count_codes": 0, "count_raw": 0, "count_codes_narrow": 0}
+
+# count_codes_narrow's contract, the same on every device: the groups of the
+# TPU experiment it replaces (docs/experiments/pallas_count.py), and all
+# masks in one block's shared memory, up to the H100's opt-in limit of
+# 227 KB (32 groups up to 1,816 words).  The kernel itself asks the runtime
+# for the masks' bytes, and a card with less would fail the launch.
+NARROW_MAX_GROUPS = 32
+NARROW_MAX_MASK_BYTES = 227 * 1024
 
 # rows per plain-version chunk: bounds its temporaries to ~_CHUNK_WORDS words
 _CHUNK_WORDS = 1 << 22
@@ -37,6 +53,19 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return x & 0x3F
 
 
+def _raw_sums(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor):
+    """Per-row n10, n11, nb of (rows, words) planes under one (words,) mask."""
+    am = a & m
+    bm = b & m
+    return (_popcount32(am).sum(dim=1, dtype=torch.int32),
+            _popcount32(bm).sum(dim=1, dtype=torch.int32),
+            _popcount32(am & bm).sum(dim=1, dtype=torch.int32))
+
+
+def _row_step(words: int) -> int:
+    return max(1, _CHUNK_WORDS // max(words, 1))
+
+
 def count_codes_reference(p0: torch.Tensor, p1: torch.Tensor,
                           masks: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch counts: (rows, words) int32 planes and (groups, words)
@@ -46,17 +75,12 @@ def count_codes_reference(p0: torch.Tensor, p1: torch.Tensor,
     g = masks.shape[0]
     out = torch.empty((rows, g, 4), dtype=torch.int32, device=p0.device)
     tot = _popcount32(masks).sum(dim=1, dtype=torch.int32)
-    step = max(1, _CHUNK_WORDS // max(words, 1))
+    step = _row_step(words)
     for lo in range(0, rows, step):
         a = p0[lo: lo + step]
         b = p1[lo: lo + step]
         for gi in range(g):
-            m = masks[gi]
-            am = a & m
-            bm = b & m
-            n10 = _popcount32(am).sum(dim=1, dtype=torch.int32)
-            n11 = _popcount32(bm).sum(dim=1, dtype=torch.int32)
-            nb = _popcount32(am & bm).sum(dim=1, dtype=torch.int32)
+            n10, n11, nb = _raw_sums(a, b, masks[gi])
             cnt1 = n10 - nb
             cnt2 = n11 - nb
             blk = out[lo: lo + step, gi]
@@ -64,6 +88,21 @@ def count_codes_reference(p0: torch.Tensor, p1: torch.Tensor,
             blk[:, 1] = cnt1
             blk[:, 2] = cnt2
             blk[:, 3] = nb
+    return out
+
+
+def count_raw_reference(p0: torch.Tensor, p1: torch.Tensor,
+                        mask1: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch raw sums of one mask: (rows, words) int32 planes and a
+    (1, words) int32 mask -> (rows, 3) int32 n10, n11, nb (no affine step).
+    Chunked over rows like count_codes_reference."""
+    rows, words = p0.shape
+    out = torch.empty((rows, 3), dtype=torch.int32, device=p0.device)
+    step = _row_step(words)
+    for lo in range(0, rows, step):
+        sums = _raw_sums(p0[lo: lo + step], p1[lo: lo + step], mask1[0])
+        for k, col in enumerate(sums):
+            out[lo: lo + step, k] = col
     return out
 
 
@@ -80,31 +119,50 @@ def _check(p0: torch.Tensor, p1: torch.Tensor, masks: torch.Tensor) -> None:
                          f"p1 {tuple(p1.shape)}, masks {tuple(masks.shape)}")
 
 
+def _check_range(p0: torch.Tensor, start: int, length: int) -> tuple[int, int]:
+    start, length = int(start), int(length)
+    if start < 0 or length < 0 or start + length > p0.shape[0]:
+        raise ValueError(f"rows [{start}, {start + length}) outside "
+                         f"[0, {p0.shape[0]})")
+    return start, length
+
+
+def _check_cuda(**tensors: torch.Tensor) -> None:
+    """What every kernel needs beyond _check: contiguous tensors, and row and
+    word counts that its int arguments hold."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    rows, words = tensors["p0"].shape
+    if words >= 1 << 26 or rows >= 1 << 31:
+        raise ValueError(f"planes of shape {(rows, words)} are too large")
+
+
+def _launch(kernel: str, device: torch.device, *args) -> None:
+    """Call ``bgt_<kernel>`` of the kernel library with ``args`` and the
+    current stream of ``device`` (no sync); raise on a CUDA error and count
+    the launch."""
+    from . import _kernels
+    fn = getattr(_kernels.library(), "bgt_" + kernel)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+
+
 def _count_codes_cuda(p0: torch.Tensor, p1: torch.Tensor, masks: torch.Tensor,
                       start: int, length: int) -> torch.Tensor:
     """Launch the hand-written kernel on the current stream (no sync)."""
-    from . import _kernels
-    for name, t in (("p0", p0), ("p1", p1), ("masks", masks)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    rows, words = p0.shape
+    _check_cuda(p0=p0, p1=p1, masks=masks)
     g = masks.shape[0]
-    if words >= 1 << 26 or rows >= 1 << 31:
-        raise ValueError(f"planes of shape {tuple(p0.shape)} are too large")
     out = torch.empty((length, g, 4), dtype=torch.int32, device=p0.device)
     if length == 0 or g == 0:
         return out
-    lib = _kernels.library()
     mask_pop = torch.empty(g, dtype=torch.int32, device=p0.device)
-    with torch.cuda.device(p0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bgt_count_codes(p0.data_ptr(), p1.data_ptr(),
-                                  masks.data_ptr(), mask_pop.data_ptr(),
-                                  out.data_ptr(), start, length, words, g,
-                                  stream)
-    if err != 0:
-        raise RuntimeError(f"count_codes kernel launch failed: CUDA error {err}")
-    LAUNCHES["count_codes"] += 1
+    _launch("count_codes", p0.device, p0.data_ptr(), p1.data_ptr(),
+            masks.data_ptr(), mask_pop.data_ptr(), out.data_ptr(), start,
+            length, p0.shape[1], g)
     return out
 
 
@@ -115,10 +173,7 @@ def count_codes_range(p0: torch.Tensor, p1: torch.Tensor, masks: torch.Tensor,
     ``start`` as an argument; a CPU tensor to the plain version, on a
     contiguous row view (no copy)."""
     _check(p0, p1, masks)
-    start, length = int(start), int(length)
-    if start < 0 or length < 0 or start + length > p0.shape[0]:
-        raise ValueError(f"rows [{start}, {start + length}) outside "
-                         f"[0, {p0.shape[0]})")
+    start, length = _check_range(p0, start, length)
     if p0.device.type == "cuda":
         return _count_codes_cuda(p0, p1, masks, start, length)
     if p0.device.type == "cpu":
@@ -135,6 +190,65 @@ def count_codes(p0: torch.Tensor, p1: torch.Tensor,
     returns (rows, groups, 4) int32: counts of codes 0..3.
     """
     return count_codes_range(p0, p1, masks, 0, p0.shape[0])
+
+
+def count_raw_range(p0: torch.Tensor, p1: torch.Tensor, mask1: torch.Tensor,
+                    start: int, length: int) -> torch.Tensor:
+    """Raw sums n10, n11, nb of one (1, words) mask over the row slice
+    [start, start+length): (length, 3) int32.  A CUDA tensor goes to the
+    kernel, a CPU tensor to the plain version."""
+    _check(p0, p1, mask1)
+    if mask1.shape[0] != 1:
+        raise ValueError(f"count_raw takes one mask, got {mask1.shape[0]}")
+    start, length = _check_range(p0, start, length)
+    if p0.device.type == "cuda":
+        _check_cuda(p0=p0, p1=p1, mask1=mask1)
+        out = torch.empty((length, 3), dtype=torch.int32, device=p0.device)
+        if length:
+            _launch("count_raw", p0.device, p0.data_ptr(), p1.data_ptr(),
+                    mask1.data_ptr(), out.data_ptr(), start, length,
+                    p0.shape[1])
+        return out
+    if p0.device.type == "cpu":
+        return count_raw_reference(p0.narrow(0, start, length),
+                                   p1.narrow(0, start, length), mask1)
+    raise ValueError(f"no count kernel for device {p0.device}")
+
+
+def count_raw(p0: torch.Tensor, p1: torch.Tensor,
+              mask1: torch.Tensor) -> torch.Tensor:
+    """Per-row raw sums of one mask: (rows, words) int32 planes and a
+    (1, words) int32 mask -> (rows, 3) int32 n10, n11, nb."""
+    return count_raw_range(p0, p1, mask1, 0, p0.shape[0])
+
+
+def count_codes_narrow(p0: torch.Tensor, p1: torch.Tensor,
+                       masks: torch.Tensor) -> torch.Tensor:
+    """The counts of :func:`count_codes`, (rows, groups, 4) int32, from the
+    kernel that stages all masks in shared memory and counts several rows
+    per warp.  It takes at most NARROW_MAX_GROUPS groups whose masks fit in
+    NARROW_MAX_MASK_BYTES and raises ValueError outside those limits, on
+    every device.  Its plain version is count_codes_reference."""
+    _check(p0, p1, masks)
+    g, words = masks.shape
+    if g > NARROW_MAX_GROUPS:
+        raise ValueError(f"count_codes_narrow takes at most "
+                         f"{NARROW_MAX_GROUPS} groups, got {g}")
+    if g * words * 4 > NARROW_MAX_MASK_BYTES:
+        raise ValueError(f"{g} masks of {words} words exceed the "
+                         f"{NARROW_MAX_MASK_BYTES} bytes of shared memory")
+    if p0.device.type == "cuda":
+        _check_cuda(p0=p0, p1=p1, masks=masks)
+        rows = p0.shape[0]
+        out = torch.empty((rows, g, 4), dtype=torch.int32, device=p0.device)
+        if rows and g:
+            _launch("count_codes_narrow", p0.device, p0.data_ptr(),
+                    p1.data_ptr(), masks.data_ptr(), out.data_ptr(), 0, rows,
+                    words, g)
+        return out
+    if p0.device.type == "cpu":
+        return count_codes_reference(p0, p1, masks)
+    raise ValueError(f"no count kernel for device {p0.device}")
 
 
 def site_stats(counts: torch.Tensor) -> dict:

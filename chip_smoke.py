@@ -7,21 +7,32 @@ Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``; exits
 non-zero, printing no result, without them.  Phases, each fatal on failure:
 
 1. preflight: the card, its name and power limit (``nvidia-smi``);
-2. build: the CUDA kernel from ``bgt_tpu_torch/csrc/`` with nvcc, sm_90a;
-3. the kernel against its plain PyTorch version on the card, exact int32
-   equality, at the device-suite, cohort-width, ragged, empty and
-   offset-range shapes, with 0xFFFFFFFF and 0x80000000 words;
-4. kernel timing on a full HRC-width tile (10^6 rows x 2031 words, random
+2. build: the CUDA kernels from ``bgt_tpu_torch/csrc/`` with nvcc, sm_90a;
+3. kernel A (``count_codes``) against its plain PyTorch version on the card,
+   exact int32 equality, at the device-suite, cohort-width, ragged, empty,
+   more-than-512-group, the probe's and offset-range shapes, with 0xFFFFFFFF and
+   0x80000000 words;
+4. kernel A's timing on a full HRC-width tile (10^6 rows x 2031 words, random
    planes made on the card) at 1, 8 and 33 groups, beside the plain version;
 5. the main path end to end: an HRC-shaped cohort (32,488 samples x 100,000
    sites) is generated, imported, and queried through ``bgt_tpu_torch.cli
    view`` with the device count tier forced; every output's md5 must equal
    that of ``bgt_tpu``'s host tier, and the kernel must have launched for
    every query;
-6. the streamed device tier (``BGT_TPU_HBM_BUDGET=1``) on one query, same md5.
+6. the streamed device tier (``BGT_TPU_HBM_BUDGET=1``) on one query, same md5;
+7. kernels B (``count_raw``) and C (``count_codes_narrow``) against their
+   plain versions on the card, exact int32 equality, at the probe's, the
+   narrow experiment's, ragged, one-word and empty shapes, with the same
+   words as phase 3; C must refuse 33 groups and 32 masks of 2,048 words;
+   each timed beside its plain version;
+8. the ported roofline probe (``bgt_tpu_torch.tools.probe_roofline``, 30,000
+   rows, k = 5), whose JSON is printed on one line and must time every
+   variant, then the narrow-width experiment
+   (``bgt_tpu_torch.experiments.narrow_count``).  They are the paths of
+   kernels B and C: each kernel's launch count is read around its path.
 
-The line before the last is a JSON object with each kernel's launches on the
-main path, its largest difference from the plain version and its times; the
+The line before the last is a JSON object with each kernel's launches on its
+path, its largest difference from the plain version and its times; the
 last line is ``{"ok": true, "device": {...}}``.  No JAX is imported: the
 ``bgt_tpu`` modules used here (data generation, import, the host-tier
 reference) are its JAX-free host layers, and the script checks that.
@@ -34,30 +45,26 @@ import hashlib
 import io
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SEED = 20261016
-KERNEL_SOURCE = "bgt_tpu_torch/csrc/count_codes.cu"
-KERNEL_REPLACES = "bgt_tpu/ops/counts.py:111"  # _count3_kernel
+# kernel: (source, the TPU kernel it replaces)
+KERNELS = {
+    "count_codes": ("bgt_tpu_torch/csrc/count_codes.cu",
+                    "bgt_tpu/ops/counts.py:111"),  # _count3_kernel
+    "count_raw": ("bgt_tpu_torch/csrc/count_raw.cu",
+                  "tools/probe_roofline.py:190"),  # _kern
+    "count_codes_narrow": ("bgt_tpu_torch/csrc/count_narrow.cu",
+                           "docs/experiments/pallas_count.py:29"),  # _count_kernel
+}
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at a 700 W power limit
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def gpu_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 def random_words(torch, shape, gen, device):
@@ -77,7 +84,9 @@ def check_kernel(torch, counts, device) -> int:
     gen.manual_seed(SEED)
     worst = 0
     shapes = [(2048, 1024, 1), (1003, 1024, 33), (517, 2048, 8),
-              (1, 2031, 1), (7, 157, 3), (100_000, 2031, 33), (0, 2031, 2)]
+              (1, 2031, 1), (7, 157, 3), (100_000, 2031, 33), (0, 2031, 2),
+              (64, 157, 600), (3, 2031, 1000),
+              (30000, 2048, 1), (30000, 2048, 32)]  # the probe's
     for rows, words, g in shapes:
         p0 = random_words(torch, (rows, words), gen, device)
         p1 = random_words(torch, (rows, words), gen, device)
@@ -108,23 +117,9 @@ def check_kernel(torch, counts, device) -> int:
     return max(worst, err)
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warmup."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def time_kernel(torch, counts, device) -> dict:
     """Phase 4: device ms at a full HRC-width tile, kernel beside plain."""
+    from bgt_tpu_torch.tools.measure import time_ms
     rows, words = 1_000_000, 2031
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
@@ -145,9 +140,9 @@ def time_kernel(torch, counts, device) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain on the full tile, g={g}")
         del got, want
-        k_ms = time_ms(torch, lambda: counts.count_codes(p0, p1, m), 5)
-        p_ms = time_ms(torch, lambda: counts.count_codes_reference(p0, p1, m),
-                       3)
+        k_ms = time_ms(lambda: counts.count_codes(p0, p1, m), device, 5)
+        p_ms = time_ms(lambda: counts.count_codes_reference(p0, p1, m),
+                       device, 3)
         gbs = nbytes / (k_ms * 1e-3) / 1e9
         log(f"[timing] groups={g} kernel {k_ms:.3f} ms ({gbs:.1f} GB/s, "
             f"{gbs / HBM_PEAK_GBS:.3f} of {HBM_PEAK_GBS:.0f} GB/s peak) | "
@@ -299,6 +294,110 @@ def main_path(torch, device, prefix: str, queries: dict) -> int:
     return counts.LAUNCHES["count_codes"]
 
 
+PROBE_VARIANTS = ("proxy_reduce2", "proxy_reduce1", "proxy_popc1",
+                  "count_1mask", "count_32mask", "count_i16_1mask",
+                  "count_reshape_1mask", "count_mm_1mask", "count_mm_32mask",
+                  "count_stack_1mask", "count_raw_1mask")
+
+
+def check_raw_narrow(torch, counts, device) -> dict:
+    """Phase 7: kernels B and C == their plain versions, then their times
+    at the shapes of their paths; returns each one's largest |difference|
+    and (kernel ms, plain ms)."""
+    from bgt_tpu_torch.tools.measure import time_ms
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    worst = {"count_raw": 0, "count_codes_narrow": 0}
+
+    def same(name, got, want, what):
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max()) if got.numel() else 0
+        ok = got.shape == want.shape and torch.equal(got, want)
+        log(f"[kernel] {name} {what} max_abs_err={err} "
+            f"{'OK' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} != plain at {what}")
+        worst[name] = max(worst[name], err)
+
+    def words3(rows, words, g):
+        return (random_words(torch, (rows, words), gen, device),
+                random_words(torch, (rows, words), gen, device),
+                random_words(torch, (g, words), gen, device))
+
+    for rows, words in ((30000, 2048), (256, 2048), (517, 157), (1, 1),
+                        (0, 2048)):
+        p0, p1, m = words3(rows, words, 1)
+        same("count_raw", counts.count_raw(p0, p1, m),
+             counts.count_raw_reference(p0, p1, m),
+             f"rows={rows} words={words}")
+    p0, p1, m = words3(4099, 157, 1)
+    start, length = 1001, 2047
+    same("count_raw", counts.count_raw_range(p0, p1, m, start, length),
+         counts.count_raw_reference(p0[start:start + length],
+                                    p1[start:start + length], m),
+         f"count_raw_range start={start} length={length}")
+    for rows, words, g in ((16384, 160, 2), (105730, 157, 1), (105730, 157, 8),
+                           (105730, 157, 32), (7, 157, 3), (1, 1, 1),
+                           (0, 157, 2)):
+        p0, p1, m = words3(rows, words, g)
+        same("count_codes_narrow", counts.count_codes_narrow(p0, p1, m),
+             counts.count_codes_reference(p0, p1, m),
+             f"rows={rows} words={words} groups={g}")
+    for g, words in ((33, 157), (32, 2048)):
+        p = torch.zeros((4, words), dtype=torch.int32, device=device)
+        try:
+            counts.count_codes_narrow(
+                p, p, torch.zeros((g, words), dtype=torch.int32, device=device))
+        except ValueError as e:
+            log(f"[kernel] count_codes_narrow refuses {g} x {words}: {e}")
+        else:
+            raise AssertionError(f"count_codes_narrow took {g} x {words}")
+
+    times = {}
+    rows, words = 30000, 2048
+    p0, p1, m = words3(rows, words, 1)
+    times["count_raw"] = (
+        time_ms(lambda: counts.count_raw(p0, p1, m), device, 20),
+        time_ms(lambda: counts.count_raw_reference(p0, p1, m), device, 5))
+    rows, words, g = 105730, 157, 32
+    q0, q1, qm = words3(rows, words, g)
+    times["count_codes_narrow"] = (
+        time_ms(lambda: counts.count_codes_narrow(q0, q1, qm), device, 20),
+        time_ms(lambda: counts.count_codes_reference(q0, q1, qm), device, 5))
+    for name, shape in (("count_raw", "30000 x 2048 words, 1 mask"),
+                        ("count_codes_narrow",
+                         "105730 x 157 words, 32 groups")):
+        k_ms, p_ms = times[name]
+        log(f"[timing] {name} at {shape}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms")
+    return {"max_abs_err": worst, "times": times}
+
+
+def kernel_paths(torch, counts, device) -> dict:
+    """Phase 8: the roofline probe (kernel B's path) and the narrow-width
+    experiment (kernel C's path); returns each kernel's launches there."""
+    from bgt_tpu_torch.experiments import narrow_count
+    from bgt_tpu_torch.tools import probe_roofline
+
+    counts.LAUNCHES["count_raw"] = 0
+    res = probe_roofline.run(30000, 5, device)
+    raw = counts.LAUNCHES["count_raw"]
+    print(json.dumps(res), flush=True)
+    for name in PROBE_VARIANTS:
+        v = res.get(name)
+        if not isinstance(v, dict) or "error" in v or not {"s", "gbs"} <= set(v):
+            raise AssertionError(f"probe variant {name}: {v}")
+    counts.LAUNCHES["count_codes_narrow"] = 0
+    narrow_count.run(device)
+    narrow = counts.LAUNCHES["count_codes_narrow"]
+    log(f"[paths] launches: count_raw {raw} in the probe, count_codes_narrow "
+        f"{narrow} in the narrow-width experiment")
+    for name, n in (("count_raw", raw), ("count_codes_narrow", narrow)):
+        if n < 1:
+            raise AssertionError(f"{name} did not run on its path")
+    return {"count_raw": raw, "count_codes_narrow": narrow}
+
+
 QUERIES = {
     "subset -G -C": ["-G", "-C", "-s", 'population=="CEU"'],
     "two-group -f": ["-G", "-s", 'population=="CEU"',
@@ -326,18 +425,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from bgt_tpu_torch.ops import _kernels, counts
+    from bgt_tpu_torch.tools import measure
 
     device = torch.device("cuda", 0)
     log(f"[preflight] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, capability {cap}")
-    log(gpu_line())
+    log(", ".join(measure.describe(device)))
 
     t0 = time.perf_counter()
     _kernels.library()
     info = _kernels.build_info
     log(f"[build] {info['path']}: "
         + ("cached" if info["cached"] else
-           f"nvcc {' '.join(_kernels.NVCC_FLAGS)} in {info['seconds']:.2f} s")
+           f"nvcc {' '.join(_kernels.NVCC_FLAGS)} -c, one per source in "
+           f"parallel, then -shared, in {info['seconds']:.2f} s")
         + f" (load {time.perf_counter() - t0:.2f} s)")
     for line in info.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line:
@@ -347,17 +448,23 @@ def main() -> int:
     timing = time_kernel(torch, counts, device)
 
     prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
-    launches = main_path(torch, device, prefix, QUERIES)
+    launches = {"count_codes": main_path(torch, device, prefix, QUERIES)}
+    log(f"[main] main-path kernel launches: {launches['count_codes']}")
+
+    rn = check_raw_narrow(torch, counts, device)
+    launches.update(kernel_paths(torch, counts, device))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(f"[main] jax imported: no; main-path kernel launches: {launches}")
+    log("[main] jax imported: no")
 
-    k_ms, p_ms = timing["by_groups"][1]
+    times = {"count_codes": timing["by_groups"][1], **rn["times"]}
+    errs = {"count_codes": max(err3, timing["max_abs_err"]),
+            **rn["max_abs_err"]}
     print(json.dumps({"kernels": [{
-        "name": "count_codes", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(err3, timing["max_abs_err"]),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": errs[name],
+        "ms": times[name][0], "plain_ms": times[name][1]}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -86,3 +86,88 @@ def test_stream_counts_matches_host(cuda, chunk):
     got = fastpath.stream_counts(ts, rows, masks, cuda, chunk_rows=chunk)
     assert counts.LAUNCHES["count_codes"] - before == -(-rows.size // chunk)
     np.testing.assert_array_equal(got, host_counts(ts, rows, masks))
+
+
+@pytest.mark.parametrize("rows,words,groups", [(64, 157, 600), (3, 2031, 1000)],
+                         ids=["64x157x600", "3x2031x1000"])
+def test_kernel_beyond_512_groups(cuda, rows, words, groups):
+    """Kernel A counts groups in chunks of 512 per launch: any count works."""
+    d = [counts.planes_to_torch(a, cuda)
+         for a in _inputs(rows, words, groups, seed=groups)]
+    got = counts.count_codes(*d)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, groups, 4)
+    assert torch.equal(got, counts.count_codes_reference(*d))
+
+
+def _on_card(cuda, arrays):
+    return [counts.planes_to_torch(a, cuda) for a in arrays]
+
+
+# (rows, words): the probe's width, a ragged tile, the 1kg width, one word,
+# no rows, a width with no 128-bit loads, a row wider than shared memory
+RAW_SHAPES = [(30000, 2048), (256, 2048), (517, 157), (1, 1), (0, 2048),
+              (300, 2031), (3, 60000)]
+
+
+@pytest.mark.parametrize("rows,words", RAW_SHAPES,
+                         ids=[f"{r}x{w}" for r, w in RAW_SHAPES])
+def test_count_raw_kernel_matches_plain(cuda, rows, words):
+    p0, p1, mask = _on_card(cuda, _inputs(rows, words, 1, seed=rows + words))
+    before = counts.LAUNCHES["count_raw"]
+    got = counts.count_raw(p0, p1, mask)
+    assert counts.LAUNCHES["count_raw"] == before + (1 if rows else 0)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 3)
+    assert torch.equal(got, counts.count_raw_reference(p0, p1, mask))
+    start = rows // 3
+    got_r = counts.count_raw_range(p0, p1, mask, start, rows - start)
+    assert torch.equal(got_r, got[start:])
+
+
+def test_count_raw_kernel_unaligned_planes(cuda):
+    """Planes 4 bytes off a 16-byte boundary take the 32-bit loads."""
+    rows, words = 129, 2048
+    a, b, mask = _inputs(rows, words, 1, seed=7)
+    flat = torch.zeros(2 * rows * words + 1, dtype=torch.int32, device=cuda)
+    p0 = flat[1: 1 + rows * words].view(rows, words)
+    p1 = flat[1 + rows * words:].view(rows, words)
+    p0.copy_(counts.planes_to_torch(a, cuda))
+    p1.copy_(counts.planes_to_torch(b, cuda))
+    m = counts.planes_to_torch(mask, cuda)
+    assert p0.data_ptr() % 16 == 4
+    got = counts.count_raw(p0, p1, m)
+    assert torch.equal(got, counts.count_raw_reference(p0, p1, m))
+
+
+# (rows, words, groups): the experiment's shapes (the 1kg width at 1, 8 and
+# 32 groups), ragged, one word (1 lane per row), 2 and 3 words, the
+# shared-memory limit, a wide row, no rows, no groups
+NARROW_SHAPES = [(16384, 160, 2), (105730, 157, 1), (105730, 157, 8),
+                 (105730, 157, 32), (7, 157, 3), (1, 1, 1),
+                 (33, 2, 9), (70, 3, 17), (64, 1816, 32), (1000, 2048, 8),
+                 (0, 157, 2), (5, 157, 0)]
+
+
+@pytest.mark.parametrize("rows,words,groups", NARROW_SHAPES,
+                         ids=[f"{r}x{w}x{g}" for r, w, g in NARROW_SHAPES])
+def test_count_narrow_kernel_matches_plain(cuda, rows, words, groups):
+    d = _on_card(cuda, _inputs(rows, words, groups, seed=rows * 3 + groups))
+    before = counts.LAUNCHES["count_codes_narrow"]
+    got = counts.count_codes_narrow(*d)
+    assert counts.LAUNCHES["count_codes_narrow"] == before + (
+        1 if rows and groups else 0)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, groups, 4)
+    assert torch.equal(got, counts.count_codes_reference(*d))
+    assert torch.equal(got, counts.count_codes(*d))
+
+
+@pytest.mark.parametrize("groups,words", [(33, 157), (32, 2048)])
+def test_count_narrow_kernel_rejects_outside_limits(cuda, groups, words):
+    p = torch.zeros((4, words), dtype=torch.int32, device=cuda)
+    m = torch.zeros((groups, words), dtype=torch.int32, device=cuda)
+    before = counts.LAUNCHES["count_codes_narrow"]
+    with pytest.raises(ValueError):
+        counts.count_codes_narrow(p, p, m)
+    assert counts.LAUNCHES["count_codes_narrow"] == before
