@@ -1,31 +1,35 @@
 """``bgt`` command line of the torch port.
 
-``view`` runs this package's query path (counts on a CUDA device).  The
-subcommands that never touch a device (import, atomize, bcfidx, getalt, fmf,
-pbfview, gtcshard, kexpr, version) are ``bgt_tpu.cli``'s own.  ``server`` is
-not ported yet.
+``view`` and ``server`` run this package's query path (counts on a CUDA
+device).  The subcommands that never touch a device (import, atomize,
+bcfidx, getalt, fmf, pbfview, gtcshard, kexpr, version) are
+``bgt_tpu.cli``'s own.
 """
 
 from __future__ import annotations
 
+import getopt
 import sys
 
 from bgt_tpu import cli as host_cli
 
 
 def main(argv=None, device=None) -> int:
-    """Run one subcommand; ``view`` counts on ``device`` (default cuda)."""
+    """Run one subcommand; ``view`` and ``server`` count on ``device``
+    (default cuda)."""
     argv = argv if argv is not None else sys.argv[1:]
     cmd = argv[0] if argv else ""
-    if cmd == "server":
-        print("[E::main] 'server' is not ported to bgt_tpu_torch yet; "
-              "run it with python -m bgt_tpu.cli server", file=sys.stderr)
-        return 1
-    if cmd not in ("view", "mview"):
+    if cmd not in ("view", "mview", "server"):
         return host_cli.main(argv)
-    from .query.view import main_view
     try:
+        if cmd == "server":
+            from .server.server import main_server
+            return main_server(argv[1:], device=device)
+        from .query.view import main_view
         return main_view(argv[1:], device=device)
+    except getopt.GetoptError as e:
+        print(f"[E::main_{cmd}] {e}", file=sys.stderr)
+        return 1
     except BrokenPipeError:
         return 1
     except ZeroDivisionError:

@@ -19,15 +19,22 @@ from ``csrc/``; on a CPU tensor the plain PyTorch version beside it:
 - ``count_codes_narrow``: the counts of ``count_codes`` for at most 32
   groups whose masks fit in one block's shared memory,
   ``csrc/count_narrow.cu`` (several rows per warp, for narrow rows).
+
+The decode and gather ops (``decode_codes``, ``gather_codes``,
+``gather_codes_range``, ``gt_pair_idx_range``) are plain torch ops on every
+device, as their JAX counterparts are XLA ops with no Pallas kernel.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 # Launches of each CUDA kernel, counted by its wrapper where it launches it.
 LAUNCHES = {"count_codes": 0, "count_raw": 0, "count_codes_narrow": 0}
+_LAUNCH_LOCK = threading.Lock()
 
 # count_codes_narrow's contract, the same on every device: the groups of the
 # TPU experiment it replaces (docs/experiments/pallas_count.py), and all
@@ -148,7 +155,14 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    _count_launch(kernel)
+
+
+def _count_launch(kernel: str) -> None:
+    # the ctypes call above releases the GIL, so request threads of the
+    # server reach this read-modify-write concurrently
+    with _LAUNCH_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _count_codes_cuda(p0: torch.Tensor, p1: torch.Tensor, masks: torch.Tensor,
@@ -264,6 +278,56 @@ def site_stats(counts: torch.Tensor) -> dict:
         out["GAC"] = counts[:, :, 1]
         out["GAC_M"] = counts[:, :, 3]
     return out
+
+
+def decode_codes(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """(rows, words) int32 planes -> (rows, words*32) uint8 genotype codes
+    ``bit(p1) << 1 | bit(p0)``, column c from bit c % 32 of word c // 32.
+    ``>>`` is arithmetic on int32, but ``(x >> s) & 1`` is still bit s."""
+    _check(p0, p1, p0[:0])
+    shifts = torch.arange(32, dtype=torch.int32, device=p0.device)
+    b0 = (p0.unsqueeze(2) >> shifts) & 1
+    b1 = (p1.unsqueeze(2) >> shifts) & 1
+    return ((b1 << 1) | b0).reshape(p0.shape[0], p0.shape[1] * 32).to(
+        torch.uint8)
+
+
+def gather_codes(p0: torch.Tensor, p1: torch.Tensor, cols: torch.Tensor,
+                 n_out: int) -> torch.Tensor:
+    """The codes of :func:`decode_codes` at the ``n_out`` columns ``cols``:
+    (rows, n_out) uint8.  Only the words that hold those columns are read."""
+    _check(p0, p1, p0[:0])
+    cols = cols.to(device=p0.device, dtype=torch.int64)
+    if cols.shape != (n_out,):
+        raise ValueError(f"cols has shape {tuple(cols.shape)}, "
+                         f"expected ({n_out},)")
+    if n_out and (int(cols.min()) < 0
+                  or int(cols.max()) >= p0.shape[1] * 32):
+        raise ValueError(f"cols outside [0, {p0.shape[1] * 32})")
+    word = cols >> 5
+    shift = (cols & 31).to(torch.int32)
+    b0 = (p0.index_select(1, word) >> shift) & 1
+    b1 = (p1.index_select(1, word) >> shift) & 1
+    return ((b1 << 1) | b0).to(torch.uint8)
+
+
+def gather_codes_range(p0: torch.Tensor, p1: torch.Tensor, cols: torch.Tensor,
+                       start: int, length: int, n_out: int) -> torch.Tensor:
+    """:func:`gather_codes` over the row slice [start, start+length):
+    (length, n_out) uint8."""
+    start, length = _check_range(p0, start, length)
+    return gather_codes(p0.narrow(0, start, length),
+                        p1.narrow(0, start, length), cols, n_out)
+
+
+def gt_pair_idx_range(p0: torch.Tensor, p1: torch.Tensor, cols: torch.Tensor,
+                      start: int, length: int) -> torch.Tensor:
+    """Diploid GT cell indices over the row slice [start, start+length):
+    ``cols`` holds each sample's two haplotype columns in turn, and the
+    result is (length, len(cols) // 2) uint8 ``code(hap0) << 2 | code(hap1)``,
+    the index into the 16-entry text-cell table."""
+    sub = gather_codes_range(p0, p1, cols, start, length, int(cols.shape[0]))
+    return (sub[:, 0::2] << 2) | sub[:, 1::2]
 
 
 def counts_to_numpy(counts: torch.Tensor) -> np.ndarray:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 
 import numpy as np
 import torch
@@ -21,12 +22,15 @@ from bgt_tpu.query import engine
 from bgt_tpu.query import fastpath as base
 from bgt_tpu.query.fastpath import _CACHE_LOCK, _cache_key, _lru_get, _lru_put
 
+from ..log import device_trace
 from ..ops import counts as counts_ops
 
 # The port's own caches, so that the two packages never answer from each
 # other's device buffers or memo.  Keys carry the device.
 _DEVICE_CACHE: dict = {}
 _DEVICE_CAP = 8
+# key of _DEVICE_CACHE -> the lock its one transfer runs under, while it runs
+_BUILD_LOCKS: dict = {}
 # ((db_key, device), masks bytes) -> full-range (n_rows, groups, 4) counts
 _COUNT_MEMO: dict = {}
 _COUNT_MEMO_BYTES = 512 << 20
@@ -63,17 +67,31 @@ def device_available(device: torch.device) -> bool:
 def get_device_tiles(bf: engine.BgtFile,
                      device: torch.device) -> DeviceTiles | None:
     """Device-resident planes, or None when they exceed the budget
-    (queries then stream row chunks through the device instead)."""
+    (queries then stream row chunks through the device instead).
+
+    The planes of one (database, device) are transferred once however many
+    threads ask at the same time: the first builds under that key's build
+    lock, the others wait on it and then read the cache."""
     key = (_cache_key(bf), str(device))
     with _CACHE_LOCK:
         if key in _DEVICE_CACHE:
             return _lru_get(_DEVICE_CACHE, key)
-    ts = base.get_tiles(bf)
-    dt = None
-    if ts.plane0.nbytes * 2 <= _hbm_budget(device):
-        dt = DeviceTiles(ts, device)
-    _lru_put(_DEVICE_CACHE, key, dt, _DEVICE_CAP)
-    return dt
+        build = _BUILD_LOCKS.setdefault(key, threading.Lock())
+    try:
+        with build:
+            with _CACHE_LOCK:
+                if key in _DEVICE_CACHE:
+                    return _lru_get(_DEVICE_CACHE, key)
+            ts = base.get_tiles(bf)
+            dt = None
+            if ts.plane0.nbytes * 2 <= _hbm_budget(device):
+                dt = DeviceTiles(ts, device)
+            _lru_put(_DEVICE_CACHE, key, dt, _DEVICE_CAP)
+            return dt
+    finally:
+        with _CACHE_LOCK:
+            if _BUILD_LOCKS.get(key) is build:
+                del _BUILD_LOCKS[key]
 
 
 def stream_counts(ts: TileStore, rows: np.ndarray, masks: np.ndarray,
@@ -242,4 +260,5 @@ class FastView(base.FastView):
         return None
 
     def run(self, out) -> None:
-        self._run(out)
+        with device_trace(self.device):
+            self._run(out)

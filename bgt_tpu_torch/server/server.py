@@ -1,0 +1,399 @@
+"""HTTP query server with the count tiers on a torch device.
+
+The counterpart of ``bgt_tpu/server/server.py``: the same GET parameters,
+status codes, help page, quota and streaming, with each query run by this
+package's ``FastView`` on the server's device.  ``ServerConfig``, the help
+page and the ``.and.``/``.or.`` rewriting are ``bgt_tpu``'s own.
+
+Request threads share the databases, the tile store and the device-resident
+planes; each request builds its own reader state, and its producer thread
+launches on that thread's current stream (the default stream), so the
+read-back of its counts is the only synchronisation it waits for.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import threading
+import time
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qsl, urlsplit
+
+import torch
+
+from bgt_tpu.formats.fmf import Fmf
+from bgt_tpu.io import files
+from bgt_tpu.query.engine import (F_CNT_AL, F_CNT_HAP, F_NO_GT, F_SET_AC,
+                                  BgtFile, BgtmReader)
+from bgt_tpu.server.server import (ServerConfig, _ClientGone, _replace_op,
+                                   help_text)
+
+from ..query import fastpath
+
+class _StreamWriter:
+    """Text-IO-shaped sink passing byte chunks to the HTTP response through
+    a bounded queue.
+
+    The producer (the query, in its own thread) blocks while the queue is
+    full and wakes when the consumer takes a chunk or stops; the consumer
+    blocks while it is empty and wakes on a chunk or the producer's close.
+    Memory stays bounded by the queue, bytes reach the client while the
+    query runs, and a client that disconnects releases the producer at its
+    next write, which raises ``_ClientGone``.
+    """
+
+    def __init__(self, maxsize: int = 64):
+        self._items: deque = deque()
+        self._maxsize = maxsize
+        lock = threading.Lock()
+        self._not_full = threading.Condition(lock)
+        self._not_empty = threading.Condition(lock)
+        self._stopped = False  # the consumer has gone
+        self._closed = False   # the producer has finished
+        outer = self
+
+        class _B:
+            def write(self, data):
+                outer._put(bytes(data))
+                return len(data)
+
+            def flush(self):
+                pass
+
+        self.buffer = _B()
+
+    def _put(self, data: bytes) -> None:
+        with self._not_full:
+            while len(self._items) >= self._maxsize and not self._stopped:
+                self._not_full.wait()
+            if self._stopped:
+                raise _ClientGone()
+            self._items.append(data)
+            self._not_empty.notify()
+
+    def write(self, s: str) -> int:
+        self._put(s.encode("latin-1"))
+        return len(s)
+
+    def flush(self) -> None:
+        pass
+
+    def close_producer(self) -> None:
+        """The producer is done: the consumer drains what is queued."""
+        with self._not_empty:
+            self._closed = True
+            self._not_empty.notify()
+
+    def stop(self) -> None:
+        """The consumer is done or its client has gone: a producer blocked
+        on a full queue wakes and raises ``_ClientGone``."""
+        with self._not_full:
+            self._stopped = True
+            self._not_full.notify()
+
+    def drain(self):
+        """Yield chunks until the producer has closed and all are taken."""
+        while True:
+            with self._not_empty:
+                while not self._items and not self._closed:
+                    self._not_empty.wait()
+                if not self._items:
+                    return
+                item = self._items.popleft()
+                self._not_full.notify()
+            yield item
+
+
+class _Opt:
+    """The view options a server query sets."""
+
+    n_rec = None
+
+    def __init__(self, seekn: int, max_gt: int, max_read: int,
+                 not_vcf: bool):
+        self.seekn = seekn
+        self.max_gt = max_gt
+        self.srv_max_read = max_read
+        self.not_vcf = not_vcf
+
+
+class _Refused(Exception):
+    """A request the parameters refuse: its status and one-line body."""
+
+    def __init__(self, status: int, msg: str):
+        super().__init__(msg)
+        self.status = status
+        self.msg = msg
+
+
+def _bad(param: str, what: str) -> _Refused:
+    return _Refused(400, f"400 Bad Request: failed to {what} parameter "
+                         f"'{param}'\n")
+
+
+def _prepare(cfg: ServerConfig, form: dict, bm: BgtmReader):
+    """Set ``bm`` up from the request parameters as ``bgt_tpu``'s
+    ``run_query`` does; returns (view options, flag, VCF output) or raises
+    ``_Refused``."""
+    flag = F_NO_GT
+    max_read = 2147483647
+    vcf_out = True
+    bm.set_mgs(cfg.min_group)
+    if "g" in form:
+        flag &= ~F_NO_GT
+    if "C" in form or "s" in form:
+        flag |= F_SET_AC
+    if "S" in form:
+        flag |= F_CNT_AL
+    if "H" in form:
+        flag |= F_CNT_HAP
+    bm.set_flag(flag)
+    if flag & (F_CNT_AL | F_CNT_HAP):
+        vcf_out = False
+    seekn = -1
+    if "f" in form and bm.set_flt_site(_replace_op(form["f"][0])) != 0:
+        raise _bad("f", "parse")
+    if "r" in form and bm.set_region(form["r"][0]) < 0:
+        raise _bad("r", "set region with")
+    if "i" in form:
+        try:
+            i = int(form["i"][0])
+        except ValueError:
+            i = 0
+        if i < 1:
+            raise _bad("i", "set start with")
+        bm.set_start(i)
+        seekn = i - 1
+    if "n" in form:
+        try:
+            max_read = int(form["n"][0])
+        except ValueError:
+            max_read = 0
+    if "t" in form:
+        vcf_out = False
+        if bm.set_table(form["t"][0]) < 0:
+            raise _bad("t", "parse tabular format with")
+    if "a" in form:
+        n_al = bm.set_alleles(_replace_op(form["a"][0]), cfg.vardb, None)
+        if n_al < 0:
+            raise _bad("a", "retrieve alleles with")
+        if n_al == 0:
+            raise _Refused(204, "204 No Content: no alleles matching "
+                                "parameter 'a'\n")
+    for s in form.get("s", ()):
+        if bm.add_group(_replace_op(s)) < 0:
+            raise _bad("s", "set sample group with")
+    bm.prepare()
+    if not bm.test_mgs():
+        raise _Refused(403, "403 Forbidden: genotype summary can't be "
+                            "computed for small sample groups\n")
+    return _Opt(seekn, cfg.max_gt, max_read, not vcf_out), flag, vcf_out
+
+
+def run_query(cfg: ServerConfig, form: dict, device: torch.device):
+    """Execute one request; returns (http_status, chunk iterator).
+
+    The query runs on this package's ``FastView`` (looked up on
+    ``query.fastpath`` at call time) in a producer thread, streaming its
+    output through a bounded queue.
+    """
+    bm = BgtmReader(cfg.files)
+    try:
+        opt, flag, vcf_out = _prepare(cfg, form, bm)
+    except _Refused as e:
+        bm.close()
+        return e.status, iter([e.msg])
+    except Exception:
+        bm.close()
+        raise
+    return 200, _stream(bm, opt, flag, vcf_out, device)
+
+
+def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
+            device: torch.device):
+    """The response body of a prepared query, produced in a worker thread.
+
+    ``bm`` is closed by whichever side finishes last: a client that goes
+    while the producer is inside one long native or device call must not
+    have the readers closed under that call."""
+    w = _StreamWriter()
+    err: list[BaseException] = []
+    left = [0]
+    left_mu = threading.Lock()
+
+    def leave() -> None:
+        with left_mu:
+            left[0] += 1
+            last = left[0] == 2
+        if last:
+            bm.close()
+
+    def work() -> None:
+        try:
+            fastpath.FastView(bm, opt, device).run(w)
+        except _ClientGone:
+            pass
+        except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+            err.append(e)
+        finally:
+            w.close_producer()
+            leave()
+
+    t = threading.Thread(target=work, daemon=True, name="bgt-stream-producer")
+    started = False
+    try:
+        if vcf_out:
+            yield (bm.h_out.text + "\n").encode("latin-1")
+        t.start()
+        started = True
+        yield from w.drain()
+        if err:
+            raise err[0]
+        if not vcf_out and len(bm.aal) > 0:
+            if flag & F_CNT_HAP:
+                yield bm.hapcnt_print().encode("latin-1")
+            if flag & F_CNT_AL:
+                yield bm.alcnt_print().encode("latin-1")
+        if bm.truncated:
+            yield b"*\n"
+    finally:
+        w.stop()
+        if started:
+            t.join(timeout=5.0)
+            leave()
+        else:
+            bm.close()
+
+
+class _Handler(BaseHTTPRequestHandler):
+    cfg: ServerConfig = None
+    device: torch.device = None
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):
+        print(f"[{time.time_ns()}] {fmt % args}", file=sys.stderr)
+
+    def do_GET(self):
+        url = urlsplit(self.path)
+        raw = url.query.replace("&&", ".AND.")
+        form: dict[str, list[str]] = {}
+        for k, v in parse_qsl(raw, keep_blank_values=True):
+            form.setdefault(k, []).append(v)
+        if not form:
+            body = help_text(self.cfg, self.headers.get("Host", "localhost"))
+            self._send_whole(200, body.encode("latin-1", errors="replace"))
+            return
+        try:
+            status, chunks = run_query(self.cfg, form, self.device)
+        except Exception as e:  # noqa: BLE001 - reported to the client
+            self._send_whole(500, f"500 Internal Server Error: {e}\n".encode())
+            return
+        # chunked transfer encoding: records flow as they are produced
+        self.send_response(status)
+        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        try:
+            try:
+                for data in chunks:
+                    if isinstance(data, str):
+                        data = data.encode("latin-1", errors="replace")
+                    if data:
+                        self._send_chunk(data)
+            except Exception as e:  # noqa: BLE001 - headers already sent
+                self._send_chunk(f"\n500 Internal Server Error: {e}\n".encode())
+            self.wfile.write(b"0\r\n\r\n")
+        except BrokenPipeError:
+            pass
+        finally:
+            # release the producer thread and the readers now
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
+
+    def _send_chunk(self, data: bytes) -> None:
+        self.wfile.write(b"%x\r\n" % len(data))
+        self.wfile.write(data)
+        self.wfile.write(b"\r\n")
+
+    def _send_whole(self, status: int, data: bytes) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", "text/plain; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+def make_server(cfg: ServerConfig,
+                device: torch.device | str | None = None) -> ThreadingHTTPServer:
+    """A threading HTTP server on ``cfg.port`` whose queries count on
+    ``device`` (default ``cuda``).  It sets no process-wide state."""
+    device = torch.device("cuda" if device is None else device)
+    handler = type("Handler", (_Handler,), {"cfg": cfg, "device": device})
+    return ThreadingHTTPServer(("", cfg.port), handler)
+
+
+def _warm_up(device: torch.device) -> None:
+    """Build or load the kernel library and create the CUDA context on
+    ``device``, so that the first request pays neither."""
+    from ..ops import _kernels
+    _kernels.library()
+    with torch.cuda.device(device):
+        torch.empty(1, device=device)
+        torch.cuda.synchronize()
+
+
+def main_server(argv: list[str],
+                device: torch.device | str | None = None) -> int:
+    """``bgt server`` (bgt-server.go's flags); counts on ``device`` (default
+    ``cuda``).  A CUDA device with no CUDA exits 1: the server never serves
+    from the host instead."""
+    import getopt as _getopt
+    cfg = ServerConfig()
+    if os.environ.get("PORT"):
+        cfg.port = int(os.environ["PORT"])
+    opts, args = _getopt.getopt(argv, "d:p:m:g:")
+    for c, val in opts:
+        if c == "-p":
+            cfg.port = int(val)
+        elif c == "-m":
+            cfg.max_gt = int(val)
+        elif c == "-d":
+            cfg.vardb = Fmf.read(val)
+        elif c == "-g":
+            cfg.min_group = int(val)
+    if not args:
+        print("Usage: bgt server [options] <bgt.pre1> [...]\n"
+              "Options:\n"
+              f"  -p INT    port number [{cfg.port} or from $PORT env]\n"
+              f"  -m INT    maximal genotypes processed per query [{cfg.max_gt}]\n"
+              "  -d FILE   variant annotations in the FMF format []\n"
+              "  -g INT    minimal sample group size (force -G if positive) [0]",
+              file=sys.stderr)
+        return 1
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print(f"[E::main_server] device {device} is not available "
+                  "(torch.cuda.is_available() is False)", file=sys.stderr)
+            return 1
+        try:
+            _warm_up(device)
+        except RuntimeError as e:
+            print(f"[E::main_server] {e}", file=sys.stderr)
+            return 1
+    files.no_file = True  # server mode: expressions never name local files
+    cfg.files = [BgtFile(p) for p in args]
+    cfg.prefixes = [os.path.basename(p) for p in args]
+    srv = make_server(cfg, device)
+    print(f"[{time.time_ns()}] launched at port {cfg.port} on {device}",
+          file=sys.stderr)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.server_close()
+    return 0

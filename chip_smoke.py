@@ -29,7 +29,18 @@ non-zero, printing no result, without them.  Phases, each fatal on failure:
    rows, k = 5), whose JSON is printed on one line and must time every
    variant, then the narrow-width experiment
    (``bgt_tpu_torch.experiments.narrow_count``).  They are the paths of
-   kernels B and C: each kernel's launch count is read around its path.
+   kernels B and C: each kernel's launch count is read around its path;
+9. the server on the cohort: ``bgt_tpu``'s (host tier) and the port's (on
+   the card, device tier forced) in process, the same requests to each
+   (help, subsets, two groups with filters, a table, all samples, a GT
+   dump, a 400), cold and warm; every status and body must be equal and
+   kernel A must run for each subset or group request.  Then 8 concurrent
+   first requests with distinct masks: all equal to ``bgt_tpu``'s, and the
+   planes transferred to the card once;
+10. ``bgt_tpu_torch.open(...).query`` against ``bgt_tpu.open(...).query``
+   in every array and the genotypes, ``entry()``'s forward on the card
+   against the same forward on the CPU, and the decode and gather ops on
+   the card against a numpy unpack.
 
 The line before the last is a JSON object with each kernel's launches on its
 path, its largest difference from the plain version and its times; the
@@ -218,6 +229,14 @@ def stages(stderr: str) -> str:
     return ", ".join(out)
 
 
+def set_env(**kv) -> None:
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
 def main_path(torch, device, prefix: str, queries: dict) -> int:
     """Phases 5 and 6; returns the kernel launches they made."""
     from bgt_tpu import log as host_log
@@ -227,13 +246,6 @@ def main_path(torch, device, prefix: str, queries: dict) -> int:
     from bgt_tpu_torch import cli
     from bgt_tpu_torch.ops import counts
     from bgt_tpu_torch.query import fastpath
-
-    def set_env(**kv):
-        for k, v in kv.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
 
     ref = {}
     for name, args in queries.items():
@@ -398,6 +410,259 @@ def kernel_paths(torch, counts, device) -> dict:
     return {"count_raw": raw, "count_codes_narrow": narrow}
 
 
+def _q(*pairs) -> str:
+    from urllib.parse import urlencode
+    return "?" + urlencode(pairs) if pairs else ""
+
+
+# name: (query string, whether kernel A runs for it); the server's -G
+# default and its genotype quota (10^7) apply
+SERVER_QUERIES = {
+    "help": (_q(), False),
+    "subset": (_q(("s", 'population=="CEU"')), True),
+    "two-group f=AC1>AC2": (_q(("s", 'population=="CEU"'),
+                               ("s", 'population=="YRI"'),
+                               ("f", "AC1>AC2")), True),
+    "two-group f=AC1/AN1>=0.1.and.AC2==0": (
+        _q(("s", 'population=="CEU"'), ("s", 'population=="YRI"'),
+           ("f", "AC1/AN1>=0.1.and.AC2==0")), True),
+    "table t= r= subset": (_q(("t", "CHROM,POS,AC,AN"),
+                              ("r", "11:1000000-5000000"),
+                              ("s", 'population=="YRI"')), True),
+    "C= all samples (rowstats)": (_q(("C", "")), False),
+    "g= GT dump r= subset": (_q(("g", ""), ("r", "11:1000000-1300000"),
+                                ("s", ",S00003,S00010,S00777,S32487")), True),
+    "400 bad region": (_q(("r", "nonexistent:1-2")), False),
+}
+# eight distinct one-group masks for the concurrent requests
+CONCURRENT_QUERIES = [_q(("s", f'population{op}"{pop}"'))
+                      for op in ("==", "!=")
+                      for pop in ("CEU", "YRI", "CHB", "TSI")]
+
+
+def fetch(port: int, query: str) -> tuple[int, bytes, float]:
+    """(status, body, wall seconds) of one GET."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/{query}",
+                                    timeout=300) as resp:
+            status, body = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, body, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def serving(srv):
+    """Run ``srv`` in a thread; shut it down and close its socket after."""
+    import threading
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+
+
+def server_path(torch, device, prefix: str) -> int:
+    """Phase 9: bgt_tpu's server on its host tier and the port's on the
+    card, in process, the same requests to each; returns kernel A's
+    launches on the port's server path."""
+    import threading
+
+    from bgt_tpu.query import fastpath as host_fastpath
+    from bgt_tpu.query.engine import BgtFile
+    from bgt_tpu.server import server as host_server
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.query import fastpath
+    from bgt_tpu_torch.server import server
+
+    cfg = server.ServerConfig()
+    cfg.port = 0
+    cfg.files = [BgtFile(prefix)]
+    cfg.prefixes = [os.path.basename(prefix)]
+    ref = {}
+    set_env(BGT_TPU_COUNT_TIER="host")
+    with serving(host_server.make_server(cfg)) as port:
+        for name, (query, _k) in SERVER_QUERIES.items():
+            host_fastpath._COUNT_MEMO.clear()
+            ref[query] = fetch(port, query)
+            status, body, dt = ref[query]
+            log(f"[server] {name}: bgt_tpu host tier {status}, {dt:.3f} s, "
+                f"{len(body)} bytes, md5 {hashlib.md5(body).hexdigest()}")
+        for query in CONCURRENT_QUERIES:
+            host_fastpath._COUNT_MEMO.clear()
+            ref[query] = fetch(port, query)
+    if ref[SERVER_QUERIES["400 bad region"][0]][0] != 400:
+        raise AssertionError("bgt_tpu's server did not answer 400")
+    if any(ref[q][0] != 200 for q in CONCURRENT_QUERIES):
+        raise AssertionError("a bgt_tpu reference request failed")
+
+    set_env(BGT_TPU_COUNT_TIER="device")
+    fastpath._DEVICE_CACHE.clear()  # the first request pays the tile's H2D
+    counts.LAUNCHES["count_codes"] = 0  # count only the server path
+    with serving(server.make_server(cfg, device)) as port:
+        for run in ("cold", "warm"):
+            for name, (query, kernel) in SERVER_QUERIES.items():
+                fastpath._COUNT_MEMO.clear()  # the kernel, not the memo
+                before = counts.LAUNCHES["count_codes"]
+                status, body, dt = fetch(port, query)
+                rose = counts.LAUNCHES["count_codes"] - before
+                md5 = hashlib.md5(body).hexdigest()
+                log(f"[server] {name} {run}: {status}, {dt:.3f} s, "
+                    f"{len(body)} bytes, md5 {md5}, kernel launches +{rose}")
+                if (status, body) != ref[query][:2]:
+                    raise AssertionError(f"server {name}: port != bgt_tpu")
+                if kernel and rose < 1:
+                    raise AssertionError(f"server {name}: kernel A did not run")
+        launches = counts.LAUNCHES["count_codes"]
+
+        # concurrent first requests: one transfer of the planes
+        built = []
+
+        class CountedTiles(fastpath.DeviceTiles):
+            def __init__(self, ts, dev):
+                built.append(1)
+                super().__init__(ts, dev)
+
+        real_tiles = fastpath.DeviceTiles
+        fastpath.DeviceTiles = CountedTiles
+        fastpath._DEVICE_CACHE.clear()
+        fastpath._COUNT_MEMO.clear()
+        before = counts.LAUNCHES["count_codes"]
+        got = {}
+        go = threading.Barrier(len(CONCURRENT_QUERIES))
+
+        def worker(query):
+            go.wait(timeout=60)
+            got[query] = fetch(port, query)
+
+        try:
+            threads = [threading.Thread(target=worker, args=(q,))
+                       for q in CONCURRENT_QUERIES]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            fastpath.DeviceTiles = real_tiles
+        rose = counts.LAUNCHES["count_codes"] - before
+        each = ", ".join(f"{got[q][2]:.3f}" for q in CONCURRENT_QUERIES
+                         if q in got)
+        log(f"[server] {len(threads)} concurrent first requests: wall "
+            f"{wall:.3f} s (each {each} s), tile transfers {len(built)}, "
+            f"kernel launches +{rose}")
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a concurrent request did not finish")
+        for q in CONCURRENT_QUERIES:
+            if got[q][:2] != ref[q][:2]:
+                raise AssertionError(f"concurrent {q}: port != bgt_tpu")
+        if len(built) != 1 or rose < len(CONCURRENT_QUERIES):
+            raise AssertionError("concurrent requests: expected one tile "
+                                 f"transfer, got {len(built)}; launches +{rose}")
+    set_env(BGT_TPU_COUNT_TIER=None)
+    return launches
+
+
+def api_entry_decode(torch, device, prefix: str, gen) -> dict:
+    """Phase 10: the Python API and the entry step against their plain
+    references, and the decode ops against a numpy unpack; returns kernel
+    A's launches on the API and entry paths."""
+    import numpy as np
+
+    import bgt_tpu
+    import bgt_tpu_torch
+    from bgt_tpu.query import fastpath as host_fastpath
+    from bgt_tpu_torch import entry
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.query import fastpath
+
+    kw = dict(region="11:1000000-1300000", site_filter="AC1>AC2",
+              samples=['population=="CEU"', 'population=="YRI"'])
+    set_env(BGT_TPU_COUNT_TIER="host")
+    host_fastpath._COUNT_MEMO.clear()
+    t0 = time.perf_counter()
+    want = bgt_tpu.open(prefix).query(**kw)
+    want_gt = want.genotypes()
+    t_host = time.perf_counter() - t0
+    set_env(BGT_TPU_COUNT_TIER="device")
+    fastpath._COUNT_MEMO.clear()
+    counts.LAUNCHES["count_codes"] = 0  # count only the API path
+    t0 = time.perf_counter()
+    got = bgt_tpu_torch.open(prefix, device).query(**kw)
+    got_gt = got.genotypes()
+    t_port = time.perf_counter() - t0
+    api_launches = counts.LAUNCHES["count_codes"]
+    set_env(BGT_TPU_COUNT_TIER=None)
+    fields = ("chrom", "pos", "rlen", "ref", "alt", "has_m", "an", "ac",
+              "ac_m", "group_an", "group_ac", "samples")
+    for name in fields:
+        a, b = getattr(got, name), getattr(want, name)
+        same = (np.array_equal(a, b) and a.dtype == b.dtype
+                if isinstance(b, np.ndarray) else a == b)
+        if not same:
+            raise AssertionError(f"api: {name} differs from bgt_tpu's")
+    if not np.array_equal(got_gt, want_gt) or want.n_sites == 0:
+        raise AssertionError("api: genotypes differ, or no site")
+    log(f"[api] query {kw}: {got.n_sites} sites, genotypes "
+        f"{got_gt.shape}, equal in every array; port {t_port:.3f} s, "
+        f"bgt_tpu host tier {t_host:.3f} s, kernel launches {api_launches}")
+    if api_launches < 1:
+        raise AssertionError("api: kernel A did not run")
+
+    counts.LAUNCHES["count_codes"] = 0  # count only the entry step
+    fwd, args = entry.entry(device)
+    got_counts, got_keep = fwd(*args)
+    torch.cuda.synchronize()
+    entry_launches = counts.LAUNCHES["count_codes"]
+    want_counts, want_keep = fwd(*(a.cpu() for a in args))  # plain version
+    ok = (torch.equal(got_counts.cpu(), want_counts)
+          and torch.equal(got_keep.cpu(), want_keep))
+    log(f"[entry] counts {tuple(got_counts.shape)}, keep "
+        f"{int(got_keep.sum())} of {got_keep.numel()}, equal to the CPU "
+        f"plain version: {ok}, kernel launches {entry_launches}")
+    if not ok or entry_launches < 1:
+        raise AssertionError("entry: card != plain, or kernel A did not run")
+
+    def unpack(a, b):
+        a = a.cpu().numpy().view(np.uint32)
+        b = b.cpu().numpy().view(np.uint32)
+        b0 = np.unpackbits(a.view(np.uint8), axis=1, bitorder="little")
+        b1 = np.unpackbits(b.view(np.uint8), axis=1, bitorder="little")
+        return (b1 << 1) | b0
+
+    for rows, words, start, length in ((512, 2031, 0, 512),
+                                       (1000, 157, 333, 500),
+                                       (77, 61, 32, 40)):
+        p0 = random_words(torch, (rows, words), gen, device)
+        p1 = random_words(torch, (rows, words), gen, device)
+        want_codes = unpack(p0, p1)
+        codes = counts.decode_codes(p0, p1)
+        cols = torch.randint(0, words * 32, (2 * 300,), device=device,
+                             generator=gen)
+        cols[0] = words * 32 - 1
+        sub = want_codes[start:start + length][:, cols.cpu().numpy()]
+        gathered = counts.gather_codes_range(p0, p1, cols, start, length,
+                                             cols.numel())
+        pairs = counts.gt_pair_idx_range(p0, p1, cols, start, length)
+        ok = (np.array_equal(codes.cpu().numpy(), want_codes)
+              and np.array_equal(gathered.cpu().numpy(), sub)
+              and np.array_equal(pairs.cpu().numpy(),
+                                 (sub[:, 0::2] << 2) | sub[:, 1::2]))
+        log(f"[decode] rows={rows} words={words} range=[{start}, "
+            f"{start + length}) cols={cols.numel()}: decode_codes, "
+            f"gather_codes_range, gt_pair_idx_range equal to numpy: {ok}")
+        if not ok:
+            raise AssertionError("decode ops != numpy unpack")
+    return {"api": api_launches, "entry": entry_launches}
+
+
 QUERIES = {
     "subset -G -C": ["-G", "-C", "-s", 'population=="CEU"'],
     "two-group -f": ["-G", "-s", 'population=="CEU"',
@@ -453,6 +718,13 @@ def main() -> int:
 
     rn = check_raw_narrow(torch, counts, device)
     launches.update(kernel_paths(torch, counts, device))
+
+    server_launches = server_path(torch, device, prefix)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    more = api_entry_decode(torch, device, prefix, gen)
+    log(f"[paths] count_codes launches: view {launches['count_codes']}, "
+        f"server {server_launches}, api {more['api']}, entry {more['entry']}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     log("[main] jax imported: no")

@@ -156,3 +156,109 @@ def test_planes_to_torch_round_trip(tmp_path):
     with pytest.raises(ValueError):
         counts.planes_to_torch(plane[0], CPU)
 
+
+
+def _planes(rows, words, seed):
+    p0, p1, _m = _inputs(rows, words, 1, seed)
+    return p0, p1, counts.planes_to_torch(p0, CPU), counts.planes_to_torch(p1, CPU)
+
+
+# (rows, words): one word, the 1kg width, a ragged width, the HRC width
+DECODE_SHAPES = [(3, 1), (17, 157), (9, 61), (2, 2031), (0, 5)]
+
+
+@pytest.mark.parametrize("rows,words", DECODE_SHAPES,
+                         ids=[f"{r}x{w}" for r, w in DECODE_SHAPES])
+def test_decode_codes_matches_jax(rows, words):
+    p0, p1, t0, t1 = _planes(rows, words, seed=rows * 11 + words)
+    got = counts.decode_codes(t0, t1)
+    assert got.dtype == torch.uint8 and got.shape == (rows, words * 32)
+    if rows:  # the JAX op cannot reshape zero rows
+        want = np.asarray(jax_counts.decode_codes(jnp.asarray(p0),
+                                                  jnp.asarray(p1)))
+        np.testing.assert_array_equal(got.numpy(), want)
+    # and a numpy unpack of the same bits
+    b0 = np.unpackbits(p0.view(np.uint8), axis=1, bitorder="little")
+    b1 = np.unpackbits(p1.view(np.uint8), axis=1, bitorder="little")
+    np.testing.assert_array_equal(got.numpy(), (b1 << 1) | b0)
+
+
+def test_decode_codes_high_bits():
+    p0 = np.array([[0xFFFFFFFF, 0x80000000]], dtype=np.uint32)
+    p1 = np.array([[0x80000000, 0x80000000]], dtype=np.uint32)
+    got = counts.decode_codes(counts.planes_to_torch(p0, CPU),
+                              counts.planes_to_torch(p1, CPU)).numpy()[0]
+    assert list(got[:31]) == [1] * 31 and got[31] == 3
+    assert list(got[32:63]) == [0] * 31 and got[63] == 3
+
+
+# (rows, words, start, length, n_cols): offsets, ragged widths, empty ranges
+GATHER_CASES = [(40, 157, 0, 40, 50), (40, 157, 13, 20, 7), (33, 61, 32, 1, 64),
+                (12, 2031, 5, 6, 300), (8, 3, 8, 0, 4), (8, 3, 2, 5, 0)]
+
+
+@pytest.mark.parametrize("rows,words,start,length,n", GATHER_CASES,
+                         ids=[f"{r}x{w}@{s}+{l}:{n}"
+                              for r, w, s, l, n in GATHER_CASES])
+def test_gather_ops_match_jax(rows, words, start, length, n):
+    p0, p1, t0, t1 = _planes(rows, words, seed=rows + words + n)
+    rng = np.random.default_rng(n)
+    cols = rng.integers(0, words * 32, n).astype(np.int32)
+    if n:
+        cols[0] = words * 32 - 1  # the last column of the last word
+    j0, j1, jc = jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(cols)
+    tc = torch.from_numpy(cols)
+    whole = counts.gather_codes(t0, t1, tc, n)
+    assert whole.dtype == torch.uint8 and whole.shape == (rows, n)
+    np.testing.assert_array_equal(
+        whole.numpy(), np.asarray(jax_counts.gather_codes(j0, j1, jc, n)))
+    got = counts.gather_codes_range(t0, t1, tc, start, length, n)
+    assert got.shape == (length, n)
+    np.testing.assert_array_equal(got.numpy(), whole.numpy()[start:start + length])
+    even = n - n % 2
+    pairs = counts.gt_pair_idx_range(t0, t1, tc[:even], start, length)
+    assert pairs.dtype == torch.uint8 and pairs.shape == (length, even // 2)
+    if length:  # the JAX ops cannot reshape zero rows
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jax_counts.gather_codes_range(j0, j1, jc, start, length, n)))
+        np.testing.assert_array_equal(pairs.numpy(), np.asarray(
+            jax_counts.gt_pair_idx_range(j0, j1, jc[:even], start, length)))
+
+
+def test_gather_ops_reject_bad_inputs():
+    _p0, _p1, t0, t1 = _planes(4, 2, seed=0)
+    for cols in ([64], [-1]):
+        with pytest.raises(ValueError, match="outside"):
+            counts.gather_codes(t0, t1, torch.tensor(cols), 1)
+    with pytest.raises(ValueError, match="shape"):
+        counts.gather_codes(t0, t1, torch.tensor([1, 2]), 3)
+    with pytest.raises(ValueError):
+        counts.gather_codes_range(t0, t1, torch.tensor([1]), 3, 2, 1)
+    with pytest.raises(TypeError):
+        counts.decode_codes(t0.to(torch.int64), t1)
+
+
+def test_launch_counter_is_locked():
+    """Concurrent launches from many threads lose no count."""
+    import sys
+    import threading
+    before = counts.LAUNCHES["count_raw"]
+    n_threads, per = 16, 2000
+
+    def work():
+        for _ in range(per):
+            counts._count_launch("count_raw")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert counts.LAUNCHES["count_raw"] - before == n_threads * per
+    counts.LAUNCHES["count_raw"] = before

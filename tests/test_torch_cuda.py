@@ -171,3 +171,82 @@ def test_count_narrow_kernel_rejects_outside_limits(cuda, groups, words):
     with pytest.raises(ValueError):
         counts.count_codes_narrow(p, p, m)
     assert counts.LAUNCHES["count_codes_narrow"] == before
+
+
+def _unpack(p0, p1):
+    """numpy codes bit(p1) << 1 | bit(p0), column c from bit c % 32 of word
+    c // 32."""
+    b0 = np.unpackbits(p0.view(np.uint8), axis=1, bitorder="little")
+    b1 = np.unpackbits(p1.view(np.uint8), axis=1, bitorder="little")
+    return (b1 << 1) | b0
+
+
+# (rows, words, start, length): the HRC width, a ragged width, offset ranges
+DECODE_CASES = [(64, 2031, 0, 64), (300, 157, 17, 200), (33, 61, 32, 1),
+                (5, 1, 0, 5)]
+
+
+@pytest.mark.parametrize("rows,words,start,length", DECODE_CASES,
+                         ids=[f"{r}x{w}@{s}+{n}" for r, w, s, n in DECODE_CASES])
+def test_decode_ops_on_card_match_numpy(cuda, rows, words, start, length):
+    p0, p1, _m = _inputs(rows, words, 1, seed=rows + words)
+    t0, t1 = _on_card(cuda, (p0, p1))
+    want = _unpack(p0, p1)
+    got = counts.decode_codes(t0, t1)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    rng = np.random.default_rng(words)
+    cols = rng.integers(0, words * 32, 2 * 97).astype(np.int64)
+    cols[0] = words * 32 - 1
+    tc = torch.from_numpy(cols).to(cuda)
+    sub = want[start:start + length][:, cols]
+    got = counts.gather_codes_range(t0, t1, tc, start, length, cols.size)
+    np.testing.assert_array_equal(got.cpu().numpy(), sub)
+    pairs = counts.gt_pair_idx_range(t0, t1, tc, start, length)
+    np.testing.assert_array_equal(pairs.cpu().numpy(),
+                                  (sub[:, 0::2] << 2) | sub[:, 1::2])
+
+
+def test_server_request_on_card_matches_host(cuda, tmp_path, monkeypatch):
+    """One subset request to the port's server on the card equals
+    bgt_tpu's server on its host tier, and kernel A ran for it."""
+    import threading
+    import urllib.request
+
+    from bgt_tpu import testing
+    from bgt_tpu.query import fastpath as host_fastpath
+    from bgt_tpu.query import importer
+    from bgt_tpu.query.engine import BgtFile
+    from bgt_tpu.server import server as host_server
+    from bgt_tpu_torch.server import server
+
+    (tmp_path / "in.vcf").write_text(
+        testing.random_vcf(n_samples=40, n_sites=300, seed=3))
+    importer.import_vcf(str(tmp_path / "db"), [str(tmp_path / "in.vcf")],
+                        is_vcf=True)
+    (tmp_path / "db.spl").write_text(testing.random_spl(40, seed=3))
+    cfg = server.ServerConfig()
+    cfg.port = 0
+    cfg.files = [BgtFile(str(tmp_path / "db"))]
+    cfg.prefixes = ["db"]
+    servers = [host_server.make_server(cfg), server.make_server(cfg, cuda)]
+    for s in servers:
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    query = '?s=population=="YRI"&s=,S0001,S0002&f=AC1>AC2&C='
+    try:
+        bodies = []
+        for s, tier in zip(servers, ("host", "device")):
+            monkeypatch.setenv("BGT_TPU_COUNT_TIER", tier)
+            host_fastpath._COUNT_MEMO.clear()
+            fastpath._COUNT_MEMO.clear()
+            before = counts.LAUNCHES["count_codes"]
+            url = f"http://127.0.0.1:{s.server_address[1]}/{query}"
+            with urllib.request.urlopen(url, timeout=120) as resp:
+                bodies.append((resp.status, resp.read()))
+            launched = counts.LAUNCHES["count_codes"] - before
+        assert launched >= 1
+        assert bodies[0][0] == 200 and bodies[1] == bodies[0]
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()

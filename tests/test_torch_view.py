@@ -8,6 +8,7 @@ port's count op must have run (otherwise rowstats or a memo answered).
 """
 
 import io
+import json
 import os
 import subprocess
 import sys
@@ -161,10 +162,26 @@ def test_column_shard_tile_raises(db, monkeypatch):
         jax_fastpath._TILE_CACHE.clear()
 
 
-def test_cli_server_not_ported(capsys):
+def test_cli_server_usage(capsys):
     from bgt_tpu_torch import cli
-    assert cli.main(["server", "-p", "0", "x"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    assert cli.main(["server"]) == 1
+    assert "Usage: bgt server" in capsys.readouterr().err
+
+
+def test_trace_writes_chrome_trace(db, monkeypatch, tmp_path, count_calls):
+    """BGT_TPU_TRACE=<dir>: the query runs under torch.profiler, one Chrome
+    trace lands in <dir>, and the output bytes do not change."""
+    monkeypatch.setenv("BGT_TPU_COUNT_TIER", "device")
+    plain = _run(view.main_view, QUERIES[1], db, device=CPU)
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("BGT_TPU_TRACE", str(trace_dir))
+    traced = _run(view.main_view, QUERIES[1], db, device=CPU)
+    assert traced == plain
+    assert len(count_calls) == 2
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    trace = json.loads(files[0].read_text())
+    assert trace["traceEvents"]
 
 
 _NO_JAX = r"""
