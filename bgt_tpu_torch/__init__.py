@@ -1,13 +1,15 @@
 """bgt_tpu_torch: the genotype-matrix engine on PyTorch and CUDA.
 
-A port of ``bgt_tpu`` beside it.  The host layers (file formats, import,
-site tables, tile stores, merges, emitters, the native codec) are
-``bgt_tpu``'s own, imported; this package owns what ran on JAX: the count
-ops, with hand-written CUDA kernels for Hopper (``csrc/``), the decode and
-gather ops, the device count tiers of the query path, the entry points
-(``view``, ``server``, the ``api`` and ``open``, ``entry``), the device
-trace, and the count-kernel probes (``tools/probe_roofline.py``,
-``experiments/narrow_count.py``).  It imports torch and never jax.
+A port of ``bgt_tpu`` beside it, importing torch and nothing of jax or of
+``bgt_tpu``.  It keeps its own copies of the host layers (``io/``,
+``formats/``, ``core/``, ``native.py`` over the repository's C++ host
+runtime, ``ops/tiles.py``, ``query/engine.py``, ``query/importer.py``,
+``testing.py``) and owns what ran on JAX: the count ops, with hand-written
+CUDA kernels for Hopper (``csrc/``), the decode and gather ops, the device
+count tiers of the query path (``query/fastpath.py``), the entry points
+(``cli`` with every subcommand, ``view``, ``server``, the ``api`` and
+``open``, ``entry``), the device trace, and the count-kernel probes
+(``tools/probe_roofline.py``, ``experiments/narrow_count.py``).
 """
 
 

@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bgt_tpu.ops.tiles import TileStore
-
 from .ops import counts as counts_ops
+from .ops.tiles import TileStore
 
 
 def _example_data(n_rows: int = 256, m: int = 1024, n_groups: int = 2,

@@ -1,64 +1,83 @@
 #!/usr/bin/env python3
 """Drive the torch port's main path once on one CUDA card, and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OLD.cu ...]
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``; exits
-non-zero, printing no result, without them.  Phases, each fatal on failure:
+non-zero, printing no result, without them.  It imports nothing of JAX and
+nothing of ``bgt_tpu``: the cohort is made and imported by the port's own
+``testing`` and ``importer``, and every device-tier output is held against
+the port's own host tier (``BGT_TPU_COUNT_TIER=host``: the same code as
+``bgt_tpu``'s host tier, which the CPU tests hold byte-equal to it).  Phases,
+each fatal on failure:
 
 1. preflight: the card, its name and power limit (``nvidia-smi``);
-2. build: the CUDA kernels from ``bgt_tpu_torch/csrc/`` with nvcc, sm_90a;
+2. build: the CUDA kernels from ``bgt_tpu_torch/csrc/`` with nvcc, sm_90a,
+   one nvcc per source in parallel, with ``-Xptxas -v``;
 3. kernel A (``count_codes``) against its plain PyTorch version on the card,
-   exact int32 equality, at the device-suite, cohort-width, ragged, empty,
-   more-than-512-group, the probe's and offset-range shapes, with 0xFFFFFFFF and
-   0x80000000 words;
-4. kernel A's timing on a full HRC-width tile (10^6 rows x 2031 words, random
-   planes made on the card) at 1, 8 and 33 groups, beside the plain version;
+   exact int32 equality, at the device-suite, cohort-width, ragged (rows
+   and words off the kernel's 16-row and 16/32-word blocks, groups off its
+   octets), one- and two-group (its carry-save path), empty,
+   more-than-40- and more-than-512-group, the probe's and offset-range
+   shapes, with 0xFFFFFFFF and 0x80000000 words;
+4. kernel A's device time on a full HRC-width tile (10^6 rows x 2031
+   words, random planes made on the card) at 1, 2, 8, 16, 32 and 33 groups
+   and at the cohort's width (100,000 x 2,048 words) at 1, 2 and 8, each
+   beside its bytes bound and share and, as a diagnostic, the time of the
+   CUDA-core logic a design on the CUDA cores would issue at the SM clock
+   read during the run; the plain version at 1 and 33 groups on the tile.
+   Each ``--baseline OLD.cu`` (a source of another revision of kernel A)
+   is also built, held equal to A and timed beside it in turns, at every
+   one of these shapes;
 5. the main path end to end: an HRC-shaped cohort (32,488 samples x 100,000
    sites) is generated, imported, and queried through ``bgt_tpu_torch.cli
-   view`` with the device count tier forced; every output's md5 must equal
-   that of ``bgt_tpu``'s host tier, and the kernel must have launched for
-   every query;
+   view`` with the device count tier forced, including one query of 8
+   groups; every output's md5 must equal the host tier's, and the kernel
+   must have launched for every query.  The subset query's host-tier and
+   cold device times are printed beside its work and the planes' bytes,
+   with the tier ``auto`` picks;
 6. the streamed device tier (``BGT_TPU_HBM_BUDGET=1``) on one query, same md5;
 7. kernels B (``count_raw``) and C (``count_codes_narrow``) against their
    plain versions on the card, exact int32 equality, at the probe's, the
    narrow experiment's, ragged, one-word and empty shapes, with the same
    words as phase 3; C must refuse 33 groups and 32 masks of 2,048 words;
-   each timed beside its plain version;
+   each timed beside its plain version and its bound;
 8. the ported roofline probe (``bgt_tpu_torch.tools.probe_roofline``, 30,000
    rows, k = 5), whose JSON is printed on one line and must time every
    variant, then the narrow-width experiment
    (``bgt_tpu_torch.experiments.narrow_count``).  They are the paths of
    kernels B and C: each kernel's launch count is read around its path;
-9. the server on the cohort: ``bgt_tpu``'s (host tier) and the port's (on
-   the card, device tier forced) in process, the same requests to each
-   (help, subsets, two groups with filters, a table, all samples, a GT
-   dump, a 400), cold and warm; every status and body must be equal and
-   kernel A must run for each subset or group request.  Then 8 concurrent
-   first requests with distinct masks: all equal to ``bgt_tpu``'s, and the
-   planes transferred to the card once;
-10. ``bgt_tpu_torch.open(...).query`` against ``bgt_tpu.open(...).query``
-   in every array and the genotypes, ``entry()``'s forward on the card
-   against the same forward on the CPU, and the decode and gather ops on
-   the card against a numpy unpack.
+9. the port's server on the cohort, in process: the same requests (help,
+   subsets, two groups with filters, a table, all samples, a GT dump, a
+   400) first on the host tier, then on the card under the default tier
+   (``auto``, nothing forced), cold and warm; every status and body must be
+   equal and kernel A must run for each subset or group request.  Then 8
+   concurrent first requests with distinct masks under ``auto``: all equal,
+   and the planes transferred to the card once;
+10. ``bgt_tpu_torch.open(...).query`` under ``auto`` on the card against
+   the same query on the host tier, in every array and the genotypes,
+   ``entry()``'s forward on the card against the same forward on the CPU,
+   and the decode and gather ops on the card against a numpy unpack.
 
 The line before the last is a JSON object with each kernel's launches on its
-path, its largest difference from the plain version and its times; the
-last line is ``{"ok": true, "device": {...}}``.  No JAX is imported: the
-``bgt_tpu`` modules used here (data generation, import, the host-tier
-reference) are its JAX-free host layers, and the script checks that.
+path, its largest difference from the plain version, its times and its
+bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import io
 import json
 import os
+import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 REPO = Path(__file__).resolve().parent
 SEED = 20261016
@@ -97,6 +116,8 @@ def check_kernel(torch, counts, device) -> int:
     shapes = [(2048, 1024, 1), (1003, 1024, 33), (517, 2048, 8),
               (1, 2031, 1), (7, 157, 3), (100_000, 2031, 33), (0, 2031, 2),
               (64, 157, 600), (3, 2031, 1000),
+              (15, 7, 9), (17, 2031, 16), (100_003, 2048, 32), (16, 8, 8),
+              (1001, 2048, 2), (33, 7, 2),  # the carry-save path's
               (30000, 2048, 1), (30000, 2048, 32)]  # the probe's
     for rows, words, g in shapes:
         p0 = random_words(torch, (rows, words), gen, device)
@@ -112,56 +133,132 @@ def check_kernel(torch, counts, device) -> int:
         if not ok:
             raise AssertionError(f"kernel != plain at {(rows, words, g)}")
         worst = max(worst, err)
-    p0 = random_words(torch, (4099, 157), gen, device)
-    p1 = random_words(torch, (4099, 157), gen, device)
-    masks = random_words(torch, (5, 157), gen, device)
     start, length = 1001, 2047
-    got = counts.count_codes_range(p0, p1, masks, start, length)
-    want = counts.count_codes_reference(p0[start:start + length],
-                                        p1[start:start + length], masks)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    log(f"[kernel] count_codes_range start={start} length={length} "
-        f"max_abs_err={err}")
-    if not torch.equal(got, want):
-        raise AssertionError("count_codes_range != plain")
-    return max(worst, err)
+    for words, g in ((157, 5), (2048, 2), (2031, 1)):
+        p0 = random_words(torch, (4099, words), gen, device)
+        p1 = random_words(torch, (4099, words), gen, device)
+        masks = random_words(torch, (g, words), gen, device)
+        got = counts.count_codes_range(p0, p1, masks, start, length)
+        want = counts.count_codes_reference(p0[start:start + length],
+                                            p1[start:start + length], masks)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        log(f"[kernel] count_codes_range start={start} length={length} "
+            f"words={words} groups={g} max_abs_err={err}")
+        if not torch.equal(got, want):
+            raise AssertionError("count_codes_range != plain")
+        worst = max(worst, err)
+    return worst
 
 
-def time_kernel(torch, counts, device) -> dict:
-    """Phase 4: device ms at a full HRC-width tile, kernel beside plain."""
-    from bgt_tpu_torch.tools.measure import time_ms
-    rows, words = 1_000_000, 2031
+def build_baseline(src: Path):
+    """``src``, a source exporting ``bgt_count_codes`` with the C signature
+    of ``csrc/count_codes.cu`` (an earlier revision of it), built with the
+    kernel library's nvcc flags into its build directory and loaded."""
+    from bgt_tpu_torch.ops import _kernels
+    h = hashlib.sha256(" ".join(_kernels.NVCC_FLAGS).encode() + src.read_bytes())
+    so = _kernels.BUILD_DIR / f"libbaseline-{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+                              "-o", str(so), str(src)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    vp = ctypes.c_void_p
+    lib.bgt_count_codes.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+    lib.bgt_count_codes.restype = ctypes.c_int
+    return lib
+
+
+def run_baseline(torch, lib, p0, p1, masks):
+    rows, words = p0.shape
+    g = masks.shape[0]
+    out = torch.empty((rows, g, 4), dtype=torch.int32, device=p0.device)
+    pop = torch.empty(g, dtype=torch.int32, device=p0.device)
+    err = lib.bgt_count_codes(p0.data_ptr(), p1.data_ptr(), masks.data_ptr(),
+                              pop.data_ptr(), out.data_ptr(), 0, rows, words,
+                              g, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"baseline launch failed: CUDA error {err}")
+    return out
+
+
+# phase 4's shapes: (label, rows, words, groups, groups timed against plain)
+TIMED = [("tile", 1_000_000, 2031, (1, 2, 8, 16, 32, 33), (1, 33)),
+         ("cohort", 100_000, 2048, (1, 2, 8), ())]
+
+
+def time_kernel(torch, counts, device, baselines=()) -> dict:
+    """Phase 4: kernel A's device ms at a full HRC-width tile (1-33 groups)
+    and at the cohort's width (1, 2, 8 groups), each beside its bytes bound
+    and share; the plain version at 1 and 33 groups on the tile.  A is
+    timed in two turns.  Each of ``baselines`` (sources of other revisions
+    of kernel A) is built, held equal to A, and timed beside it in those
+    turns: the baselines, A, A, the baselines in reverse."""
+    from bgt_tpu_torch.tools.measure import (count_bound_ms,
+                                             cuda_core_logic_ms, sm_clock_mhz,
+                                             time_ms)
+    bases = {src.stem: build_baseline(src) for src in baselines}
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
-    p0 = random_words(torch, (rows, words), gen, device)
-    p1 = random_words(torch, (rows, words), gen, device)
-    masks = random_words(torch, (33, words), gen, device)
-    nbytes = 2 * rows * words * 4
-    log(f"[timing] tile {rows} x {words} words, {nbytes / 1e9:.2f} GB of "
-        "planes on the card")
     res = {}
     worst = 0
-    for g in (1, 8, 33):
-        m = masks[:g].contiguous()
-        got = counts.count_codes(p0, p1, m)
-        want = counts.count_codes_reference(p0, p1, m)
-        torch.cuda.synchronize()
-        worst = max(worst, int((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel != plain on the full tile, g={g}")
-        del got, want
-        k_ms = time_ms(lambda: counts.count_codes(p0, p1, m), device, 5)
-        p_ms = time_ms(lambda: counts.count_codes_reference(p0, p1, m),
-                       device, 3)
-        gbs = nbytes / (k_ms * 1e-3) / 1e9
-        log(f"[timing] groups={g} kernel {k_ms:.3f} ms ({gbs:.1f} GB/s, "
-            f"{gbs / HBM_PEAK_GBS:.3f} of {HBM_PEAK_GBS:.0f} GB/s peak) | "
-            f"plain {p_ms:.3f} ms ({nbytes / (p_ms * 1e-3) / 1e9:.1f} GB/s)")
-        res[g] = (k_ms, p_ms)
-    del p0, p1, masks
-    torch.cuda.empty_cache()
-    return {"by_groups": res, "max_abs_err": worst}
+    for label, rows, words, groups, plain_at in TIMED:
+        p0 = random_words(torch, (rows, words), gen, device)
+        p1 = random_words(torch, (rows, words), gen, device)
+        masks = random_words(torch, (max(groups), words), gen, device)
+        nbytes = 2 * rows * words * 4
+        reps = 5 if rows >= 1_000_000 else 20
+        log(f"[timing] {label} {rows} x {words} words, {nbytes / 1e9:.2f} GB "
+            "of planes on the card")
+        for g in groups:
+            m = masks[:g].contiguous()
+            fns = {name: (lambda lib=lib: run_baseline(torch, lib, p0, p1, m))
+                   for name, lib in bases.items()}
+            fns["kernel"] = lambda: counts.count_codes(p0, p1, m)
+            plain = g in plain_at
+            if plain or bases:
+                got = fns["kernel"]()
+                if plain:
+                    want = counts.count_codes_reference(p0, p1, m)
+                    torch.cuda.synchronize()
+                    worst = max(worst, int((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"kernel != plain at {label}, g={g}")
+                    del want
+                for name in bases:
+                    if not torch.equal(got, fns[name]()):
+                        raise AssertionError(f"kernel != {name} at {label}, g={g}")
+                del got
+            # two turns of each; the first timing at a new shape can run
+            # slow (0.616 against 0.525 ms at the cohort's 1 group, H100
+            # 80GB HBM3), so the lower of A's two medians is its time
+            order = [*bases, "kernel"]
+            ms = {name: [] for name in order}
+            for name in order + order[::-1]:
+                ms[name].append(time_ms(fns[name], device, reps))
+            k_ms = min(ms["kernel"])
+            turns = " | turns: " + "; ".join(
+                f"{name} " + ", ".join(f"{t:.3f}" for t in ms[name])
+                for name in order) + " ms"
+            mhz = sm_clock_mhz(device)
+            bound = count_bound_ms(rows, words, g, 4)
+            p_ms = (time_ms(lambda: counts.count_codes_reference(p0, p1, m),
+                            device, 3) if plain else None)
+            gbs = nbytes / (k_ms * 1e-3) / 1e9
+            log(f"[timing] {label} groups={g} kernel {k_ms:.3f} ms "
+                f"({gbs:.1f} GB/s) | bound {bound:.3f} ms by bytes, share "
+                f"{bound / k_ms:.3f} | CUDA-core logic "
+                f"{cuda_core_logic_ms(rows, words, g, mhz):.3f} ms at "
+                f"{mhz:.0f} MHz" + (f" | plain {p_ms:.3f} ms" if plain else "")
+                + turns)
+            res[label, g] = (k_ms, p_ms, bound, "bytes")
+        del p0, p1, masks
+        torch.cuda.empty_cache()
+    return {"by_shape": res, "max_abs_err": worst}
 
 
 def make_cohort(work: Path, n_samples: int, n_sites: int) -> str:
@@ -169,9 +266,8 @@ def make_cohort(work: Path, n_samples: int, n_sites: int) -> str:
     The .spl carries a population key whose names match the cohort's."""
     import numpy as np
 
-    from bgt_tpu import testing
-    from bgt_tpu.ops.tiles import TileStore
-    from bgt_tpu_torch import cli
+    from bgt_tpu_torch import cli, testing
+    from bgt_tpu_torch.ops.tiles import TileStore
 
     prefix = str(work / "db")
     stamp = work / f"done-{n_samples}x{n_sites}-{SEED}"
@@ -237,30 +333,39 @@ def set_env(**kv) -> None:
             os.environ[k] = v
 
 
+def host_tier(fn):
+    """``fn`` run on the port's host tier, as ``capture`` gives it."""
+    from bgt_tpu_torch.query import fastpath
+    set_env(BGT_TPU_COUNT_TIER="host", BGT_TPU_HBM_BUDGET=None)
+    fastpath._COUNT_MEMO.clear()
+    try:
+        return capture(fn)
+    finally:
+        fastpath._COUNT_MEMO.clear()
+
+
 def main_path(torch, device, prefix: str, queries: dict) -> int:
     """Phases 5 and 6; returns the kernel launches they made."""
-    from bgt_tpu import log as host_log
-    from bgt_tpu.ops.tiles import TileStore
-    from bgt_tpu.query import fastpath as host_fastpath
-    from bgt_tpu.query import view as host_view
     from bgt_tpu_torch import cli
+    from bgt_tpu_torch import log as port_log
     from bgt_tpu_torch.ops import counts
-    from bgt_tpu_torch.query import fastpath
+    from bgt_tpu_torch.ops.tiles import TileStore
+    from bgt_tpu_torch.query import engine, fastpath
 
     ref = {}
     for name, args in queries.items():
-        set_env(BGT_TPU_COUNT_TIER="host", BGT_TPU_HBM_BUDGET=None)
-        host_fastpath._COUNT_MEMO.clear()
-        ref[name] = capture(lambda: host_view.main_view(args + [prefix]))
-        log(f"[main] {name}: bgt_tpu host tier {ref[name][1]:.3f} s, "
+        ref[name] = host_tier(lambda: cli.main(["view", *args, prefix],
+                                               device=device))
+        log(f"[main] {name}: host tier {ref[name][1]:.3f} s, "
             f"{ref[name][2]} records, md5 {ref[name][0]}")
 
-    verbosity = host_log.verbosity()
+    verbosity = port_log.verbosity()
+    fastpath._DEVICE_CACHE.clear()  # the first query pays the tile's H2D
     counts.LAUNCHES["count_codes"] = 0  # count only the main path from here
     for name, args in queries.items():
         for run in ("cold", "warm", "staged"):
             # the staged run logs each pipeline stage's wall time
-            host_log.set_verbosity(4 if run == "staged" else verbosity)
+            port_log.set_verbosity(4 if run == "staged" else verbosity)
             set_env(BGT_TPU_COUNT_TIER="device", BGT_TPU_HBM_BUDGET=None)
             fastpath._COUNT_MEMO.clear()  # the device tier, not the memo
             before = counts.LAUNCHES["count_codes"]
@@ -271,25 +376,41 @@ def main_path(torch, device, prefix: str, queries: dict) -> int:
                 f"kernel launches +{rose}"
                 + (f"; stages: {stages(err)}" if run == "staged" else ""))
             if md5 != ref[name][0]:
-                raise AssertionError(f"{name}: port md5 != bgt_tpu host md5")
+                raise AssertionError(f"{name}: device md5 != host-tier md5")
             if rose < 1:
                 raise AssertionError(f"{name}: the count kernel did not run")
-    host_log.set_verbosity(verbosity)
+    port_log.set_verbosity(verbosity)
+
+    # the rule of auto: host only for work below one transfer of the planes
+    ts = TileStore.open_or_build(prefix)
+    nbytes = 2 * ts.plane0.nbytes
+    work = ts.n_rows * 1 * ts.n_words * 4 * 3  # the subset query: 1 mask
+    bm = engine.BgtmReader([engine.open_bgt_cached(prefix)])
+    bm.prepare()
+    set_env(BGT_TPU_COUNT_TIER=None)
+    fastpath._DEVICE_CACHE.clear()
+    tier = fastpath.DbCtx(bm.bgt[0], None, device)._count_tier(
+        np.arange(ts.n_rows), np.zeros((1, ts.n_words), np.uint32), True)
+    bm.close()
+    name = next(iter(queries))
+    log(f"[main] {name}: host tier {ref[name][1]:.3f} s against the device "
+        f"tier cold (tile H2D included) above; work {work / 1e9:.3f} GB of "
+        f"masked popcount against {nbytes / 1e9:.3f} GB of planes (one "
+        f"transfer): auto picks {tier}")
+    if tier != "device":
+        raise AssertionError("auto keeps the cohort's subset query on the host")
 
     # the resident tile's host-to-device transfer, timed on its own
-    ts = TileStore.open_or_build(prefix)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dt_tiles = fastpath.DeviceTiles(ts, device)
     torch.cuda.synchronize()
     h2d = time.perf_counter() - t0
-    nbytes = 2 * ts.plane0.nbytes
     log(f"[main] tile H2D {h2d:.3f} s for {nbytes / 1e9:.2f} GB "
         f"({nbytes / h2d / 1e9:.1f} GB/s, pinned staging)")
     del dt_tiles
 
     # phase 6: the streamed tier
-    name = next(iter(queries))
     set_env(BGT_TPU_COUNT_TIER="device", BGT_TPU_HBM_BUDGET="1")
     fastpath._COUNT_MEMO.clear()
     fastpath._DEVICE_CACHE.clear()
@@ -301,6 +422,7 @@ def main_path(torch, device, prefix: str, queries: dict) -> int:
     log(f"[stream] {name} with BGT_TPU_HBM_BUDGET=1: {dt:.3f} s, md5 {md5}, "
         f"kernel launches +{rose}, planes resident: {not streamed}")
     set_env(BGT_TPU_COUNT_TIER=None, BGT_TPU_HBM_BUDGET=None)
+    fastpath._DEVICE_CACHE.clear()
     if md5 != ref[name][0] or rose < 1 or not streamed:
         raise AssertionError("streamed tier failed")
     return counts.LAUNCHES["count_codes"]
@@ -316,7 +438,9 @@ def check_raw_narrow(torch, counts, device) -> dict:
     """Phase 7: kernels B and C == their plain versions, then their times
     at the shapes of their paths; returns each one's largest |difference|
     and (kernel ms, plain ms)."""
-    from bgt_tpu_torch.tools.measure import time_ms
+    from bgt_tpu_torch.tools.measure import (count_bound_ms,
+                                             cuda_core_logic_ms, sm_clock_mhz,
+                                             time_ms)
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     worst = {"count_raw": 0, "count_codes_narrow": 0}
@@ -366,22 +490,30 @@ def check_raw_narrow(torch, counts, device) -> dict:
             raise AssertionError(f"count_codes_narrow took {g} x {words}")
 
     times = {}
+    logic = {}
     rows, words = 30000, 2048
     p0, p1, m = words3(rows, words, 1)
+    k_ms = time_ms(lambda: counts.count_raw(p0, p1, m), device, 20)
+    logic["count_raw"] = cuda_core_logic_ms(rows, words, 1, sm_clock_mhz(device))
     times["count_raw"] = (
-        time_ms(lambda: counts.count_raw(p0, p1, m), device, 20),
-        time_ms(lambda: counts.count_raw_reference(p0, p1, m), device, 5))
+        k_ms, time_ms(lambda: counts.count_raw_reference(p0, p1, m), device, 5),
+        count_bound_ms(rows, words, 1, 3), "bytes")
     rows, words, g = 105730, 157, 32
     q0, q1, qm = words3(rows, words, g)
+    k_ms = time_ms(lambda: counts.count_codes_narrow(q0, q1, qm), device, 20)
+    logic["count_codes_narrow"] = cuda_core_logic_ms(rows, words, g,
+                                                     sm_clock_mhz(device))
     times["count_codes_narrow"] = (
-        time_ms(lambda: counts.count_codes_narrow(q0, q1, qm), device, 20),
-        time_ms(lambda: counts.count_codes_reference(q0, q1, qm), device, 5))
+        k_ms,
+        time_ms(lambda: counts.count_codes_reference(q0, q1, qm), device, 5),
+        count_bound_ms(rows, words, g, 4), "bytes")
     for name, shape in (("count_raw", "30000 x 2048 words, 1 mask"),
                         ("count_codes_narrow",
                          "105730 x 157 words, 32 groups")):
-        k_ms, p_ms = times[name]
+        k_ms, p_ms, b_ms, _ = times[name]
         log(f"[timing] {name} at {shape}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms")
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by bytes, share "
+            f"{b_ms / k_ms:.3f} | CUDA-core logic {logic[name]:.4f} ms")
     return {"max_abs_err": worst, "times": times}
 
 
@@ -469,16 +601,14 @@ def serving(srv):
 
 
 def server_path(torch, device, prefix: str) -> int:
-    """Phase 9: bgt_tpu's server on its host tier and the port's on the
-    card, in process, the same requests to each; returns kernel A's
-    launches on the port's server path."""
+    """Phase 9: the port's server on the host tier, then on the card under
+    the default tier (``auto``), in process, the same requests to each;
+    returns kernel A's launches on the server path."""
     import threading
 
-    from bgt_tpu.query import fastpath as host_fastpath
-    from bgt_tpu.query.engine import BgtFile
-    from bgt_tpu.server import server as host_server
     from bgt_tpu_torch.ops import counts
     from bgt_tpu_torch.query import fastpath
+    from bgt_tpu_torch.query.engine import BgtFile
     from bgt_tpu_torch.server import server
 
     cfg = server.ServerConfig()
@@ -487,22 +617,22 @@ def server_path(torch, device, prefix: str) -> int:
     cfg.prefixes = [os.path.basename(prefix)]
     ref = {}
     set_env(BGT_TPU_COUNT_TIER="host")
-    with serving(host_server.make_server(cfg)) as port:
+    with serving(server.make_server(cfg, device)) as port:
         for name, (query, _k) in SERVER_QUERIES.items():
-            host_fastpath._COUNT_MEMO.clear()
+            fastpath._COUNT_MEMO.clear()
             ref[query] = fetch(port, query)
             status, body, dt = ref[query]
-            log(f"[server] {name}: bgt_tpu host tier {status}, {dt:.3f} s, "
+            log(f"[server] {name}: host tier {status}, {dt:.3f} s, "
                 f"{len(body)} bytes, md5 {hashlib.md5(body).hexdigest()}")
         for query in CONCURRENT_QUERIES:
-            host_fastpath._COUNT_MEMO.clear()
+            fastpath._COUNT_MEMO.clear()
             ref[query] = fetch(port, query)
     if ref[SERVER_QUERIES["400 bad region"][0]][0] != 400:
-        raise AssertionError("bgt_tpu's server did not answer 400")
+        raise AssertionError("the host-tier server did not answer 400")
     if any(ref[q][0] != 200 for q in CONCURRENT_QUERIES):
-        raise AssertionError("a bgt_tpu reference request failed")
+        raise AssertionError("a host-tier reference request failed")
 
-    set_env(BGT_TPU_COUNT_TIER="device")
+    set_env(BGT_TPU_COUNT_TIER=None)  # auto: nothing forced
     fastpath._DEVICE_CACHE.clear()  # the first request pays the tile's H2D
     counts.LAUNCHES["count_codes"] = 0  # count only the server path
     with serving(server.make_server(cfg, device)) as port:
@@ -516,7 +646,7 @@ def server_path(torch, device, prefix: str) -> int:
                 log(f"[server] {name} {run}: {status}, {dt:.3f} s, "
                     f"{len(body)} bytes, md5 {md5}, kernel launches +{rose}")
                 if (status, body) != ref[query][:2]:
-                    raise AssertionError(f"server {name}: port != bgt_tpu")
+                    raise AssertionError(f"server {name}: card != host tier")
                 if kernel and rose < 1:
                     raise AssertionError(f"server {name}: kernel A did not run")
         launches = counts.LAUNCHES["count_codes"]
@@ -562,7 +692,7 @@ def server_path(torch, device, prefix: str) -> int:
             raise AssertionError("a concurrent request did not finish")
         for q in CONCURRENT_QUERIES:
             if got[q][:2] != ref[q][:2]:
-                raise AssertionError(f"concurrent {q}: port != bgt_tpu")
+                raise AssertionError(f"concurrent {q}: card != host tier")
         if len(built) != 1 or rose < len(CONCURRENT_QUERIES):
             raise AssertionError("concurrent requests: expected one tile "
                                  f"transfer, got {len(built)}; launches +{rose}")
@@ -574,11 +704,7 @@ def api_entry_decode(torch, device, prefix: str, gen) -> dict:
     """Phase 10: the Python API and the entry step against their plain
     references, and the decode ops against a numpy unpack; returns kernel
     A's launches on the API and entry paths."""
-    import numpy as np
-
-    import bgt_tpu
     import bgt_tpu_torch
-    from bgt_tpu.query import fastpath as host_fastpath
     from bgt_tpu_torch import entry
     from bgt_tpu_torch.ops import counts
     from bgt_tpu_torch.query import fastpath
@@ -586,12 +712,12 @@ def api_entry_decode(torch, device, prefix: str, gen) -> dict:
     kw = dict(region="11:1000000-1300000", site_filter="AC1>AC2",
               samples=['population=="CEU"', 'population=="YRI"'])
     set_env(BGT_TPU_COUNT_TIER="host")
-    host_fastpath._COUNT_MEMO.clear()
+    fastpath._COUNT_MEMO.clear()
     t0 = time.perf_counter()
-    want = bgt_tpu.open(prefix).query(**kw)
+    want = bgt_tpu_torch.open(prefix, device).query(**kw)
     want_gt = want.genotypes()
     t_host = time.perf_counter() - t0
-    set_env(BGT_TPU_COUNT_TIER="device")
+    set_env(BGT_TPU_COUNT_TIER=None)  # auto: the planes are resident
     fastpath._COUNT_MEMO.clear()
     counts.LAUNCHES["count_codes"] = 0  # count only the API path
     t0 = time.perf_counter()
@@ -607,12 +733,13 @@ def api_entry_decode(torch, device, prefix: str, gen) -> dict:
         same = (np.array_equal(a, b) and a.dtype == b.dtype
                 if isinstance(b, np.ndarray) else a == b)
         if not same:
-            raise AssertionError(f"api: {name} differs from bgt_tpu's")
+            raise AssertionError(f"api: {name} differs from the host tier's")
     if not np.array_equal(got_gt, want_gt) or want.n_sites == 0:
         raise AssertionError("api: genotypes differ, or no site")
     log(f"[api] query {kw}: {got.n_sites} sites, genotypes "
-        f"{got_gt.shape}, equal in every array; port {t_port:.3f} s, "
-        f"bgt_tpu host tier {t_host:.3f} s, kernel launches {api_launches}")
+        f"{got_gt.shape}, equal in every array; card under auto "
+        f"{t_port:.3f} s, host tier {t_host:.3f} s, kernel launches "
+        f"{api_launches}")
     if api_launches < 1:
         raise AssertionError("api: kernel A did not run")
 
@@ -674,10 +801,22 @@ QUERIES = {
                              "-s", 'population=="YRI"', "-f", "AC1>AC2"],
     "table -r subset": ["-t", "CHROM,POS,AC,AN", "-r", "11:1000000-5000000",
                         "-s", 'population=="YRI"'],
+    # kernel A at 8 groups on the main path: each population and its rest
+    "eight-group -G -C": ["-G", "-C", *(a for op in ("==", "!=")
+                                        for pop in ("CEU", "YRI", "CHB", "TSI")
+                                        for a in ("-s", f'population{op}"{pop}"'))],
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, metavar="OLD.cu", action="append",
+                    default=[],
+                    help="a source of another revision of kernel A (the C "
+                         "entry point bgt_count_codes) to time beside A in "
+                         "phase 4; may be given more than once")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -710,7 +849,7 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     err3 = check_kernel(torch, counts, device)
-    timing = time_kernel(torch, counts, device)
+    timing = time_kernel(torch, counts, device, args.baseline)
 
     prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
     launches = {"count_codes": main_path(torch, device, prefix, QUERIES)}
@@ -725,17 +864,23 @@ def main() -> int:
     more = api_entry_decode(torch, device, prefix, gen)
     log(f"[paths] count_codes launches: view {launches['count_codes']}, "
         f"server {server_launches}, api {more['api']}, entry {more['entry']}")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    log("[main] jax imported: no")
+    for pkg in ("jax", "bgt_tpu"):
+        if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
+            raise AssertionError(f"{pkg} was imported")
+        log(f"[main] {pkg} imported: no")
 
-    times = {"count_codes": timing["by_groups"][1], **rn["times"]}
+    # A at 1 group on the tile, B and C at their phase-7 shapes; no single
+    # PyTorch call computes a masked popcount (torch has no popcount op),
+    # so there is no library time
+    times = {"count_codes": timing["by_shape"]["tile", 1], **rn["times"]}
     errs = {"count_codes": max(err3, timing["max_abs_err"]),
             **rn["max_abs_err"]}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],
-        "ms": times[name][0], "plain_ms": times[name][1]}
+        "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": times[name][2], "bound_by": times[name][3],
+        "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

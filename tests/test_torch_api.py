@@ -1,9 +1,10 @@
 """bgt_tpu_torch.api against bgt_tpu.api, array for array.
 
-The same query goes through the port's ``Dataset`` on the CPU device with
-the device count tier forced, and through ``bgt_tpu``'s on its JAX-CPU
-device tier and on its host tier.  Every array of the results, and the
-genotype matrix, must be equal (integers and codes: exact).
+The databases are written by the port's own importer.  The same query goes
+through the port's ``Dataset`` on the CPU device with the device count tier
+forced, and through ``bgt_tpu``'s on its JAX-CPU device tier and on its host
+tier.  Every array of the results, and the genotype matrix, must be equal
+(integers and codes: exact).
 """
 
 import numpy as np
@@ -12,12 +13,10 @@ import torch
 
 import bgt_tpu
 import bgt_tpu_torch
-from bgt_tpu import testing
 from bgt_tpu.query import fastpath as jax_fastpath
-from bgt_tpu.query import importer
-from bgt_tpu_torch import api
+from bgt_tpu_torch import api, testing
 from bgt_tpu_torch.ops import counts
-from bgt_tpu_torch.query import fastpath
+from bgt_tpu_torch.query import fastpath, importer
 
 FIELDS = ("chrom", "pos", "rlen", "ref", "alt", "has_m", "an", "ac", "ac_m",
           "group_an", "group_ac", "samples")
@@ -107,12 +106,16 @@ def test_all_samples_query_uses_rowstats(prefixes, monkeypatch, count_calls):
 
 
 def test_open_defaults_to_cuda(prefixes, monkeypatch):
-    ds = bgt_tpu_torch.open(prefixes[0])
-    assert isinstance(ds, api.Dataset) and isinstance(ds, bgt_tpu.api.Dataset)
+    ds = bgt_tpu_torch.open(prefixes)
+    want = bgt_tpu.open(prefixes)
+    assert isinstance(ds, api.Dataset)
     assert ds.device == torch.device("cuda")
-    assert ds.samples == bgt_tpu.open(prefixes[0]).samples
+    assert ds.samples == want.samples
+    assert ds.n_sites == want.n_sites
+    assert [f.prefix for f in ds.files] == [f.prefix for f in want.files]
     if not torch.cuda.is_available():
-        monkeypatch.setenv("BGT_TPU_COUNT_TIER", "device")
+        # the default tier is auto: without CUDA a counted query raises
+        monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
         fastpath._COUNT_MEMO.clear()
         with pytest.raises(RuntimeError, match="not available"):
             ds.query(samples=['population=="YRI"'])

@@ -3,10 +3,13 @@
 The same numpy-seeded planes and masks go through the port's plain PyTorch
 counts (CPU tensors), ``bgt_tpu.ops.counts`` (its jnp formulation on
 JAX-CPU; the Pallas kernel is TPU-gated, as in the JAX package's own tests)
-and ``fastpath.host_counts``.  Counts are integers: the tolerance is 0.
+and the host popcount tier (the port's ``fastpath.host_counts`` on its own
+``TileStore``, held equal to ``bgt_tpu``'s).  Counts are integers: the
+tolerance is 0.
 """
 
 import warnings
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +17,11 @@ import pytest
 import torch
 
 from bgt_tpu.ops import counts as jax_counts
-from bgt_tpu.ops.tiles import TileStore
-from bgt_tpu.query.fastpath import host_counts
+from bgt_tpu.ops.tiles import TileStore as JaxTileStore
+from bgt_tpu.query.fastpath import host_counts as jax_host_counts
 from bgt_tpu_torch.ops import counts
+from bgt_tpu_torch.ops.tiles import TileStore
+from bgt_tpu_torch.query.fastpath import host_counts
 
 CPU = torch.device("cpu")
 
@@ -59,6 +64,9 @@ def test_count_codes_matches_jax_and_host(rows, words, groups):
     np.testing.assert_array_equal(got, want_jax)
     ts = TileStore(rows, words * 32, p0, p1)
     want_host = host_counts(ts, np.arange(rows, dtype=np.int64), masks)
+    np.testing.assert_array_equal(want_host, jax_host_counts(
+        JaxTileStore(rows, words * 32, p0, p1),
+        np.arange(rows, dtype=np.int64), masks))
     np.testing.assert_array_equal(got, want_host)
 
 
@@ -262,3 +270,34 @@ def test_launch_counter_is_locked():
     assert not any(t.is_alive() for t in threads)
     assert counts.LAUNCHES["count_raw"] - before == n_threads * per
     counts.LAUNCHES["count_raw"] = before
+
+
+@pytest.mark.parametrize("rows,words,groups,out_ints,ms", [
+    (1_000_000, 2031, 1, 4, 4.855), (1_000_000, 2031, 33, 4, 5.008),
+    (30000, 2048, 1, 3, 0.1468), (105730, 157, 32, 4, 0.0558)])
+def test_count_bound_ms(rows, words, groups, out_ints, ms):
+    """The bound chip_smoke prints: the bytes (planes and masks read once,
+    counts written once, at 3.35 TB/s) alone, at every group count; the
+    CUDA-core logic time (3 ANDs per word per group at 132 SMs x 64 per
+    clock) is a separate diagnostic."""
+    from bgt_tpu_torch.tools.measure import count_bound_ms, cuda_core_logic_ms
+    bound = count_bound_ms(rows, words, groups, out_ints)
+    nbytes = (2 * rows + groups) * words * 4 + rows * groups * out_ints * 4
+    assert bound == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    assert bound == pytest.approx(ms, abs=5e-4)
+    assert cuda_core_logic_ms(rows, words, groups, 1980.0) == pytest.approx(
+        3 * rows * words * groups / (132 * 64 * 1.98e9) * 1e3, rel=1e-12)
+
+
+def test_chip_smoke_needs_cuda(tmp_path):
+    """chip_smoke exits non-zero without a card, with or without a
+    baseline kernel to time beside A."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.main([]) == 2
+    assert chip_smoke.main(["--baseline", str(tmp_path / "a.cu")]) == 2

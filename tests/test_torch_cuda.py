@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from bgt_tpu.ops.tiles import TileStore
-from bgt_tpu.query.fastpath import host_counts
+from bgt_tpu.ops.tiles import TileStore as JaxTileStore
+from bgt_tpu.query.fastpath import host_counts as jax_host_counts
 from bgt_tpu_torch.ops import counts
+from bgt_tpu_torch.ops.tiles import TileStore
 from bgt_tpu_torch.query import fastpath
 
 pytestmark = pytest.mark.cuda
@@ -52,9 +53,9 @@ def test_kernel_matches_plain_and_host(cuda, rows, words, groups):
     assert got.shape == (rows, groups, 4)
     plain = counts.counts_to_numpy(counts.count_codes_reference(*d))
     np.testing.assert_array_equal(got, plain)
-    ts = TileStore(rows, words * 32, p0, p1)
+    ts = JaxTileStore(rows, words * 32, p0, p1)
     np.testing.assert_array_equal(
-        got, host_counts(ts, np.arange(rows, dtype=np.int64), masks))
+        got, jax_host_counts(ts, np.arange(rows, dtype=np.int64), masks))
     start = rows // 3
     got_r = counts.counts_to_numpy(
         counts.count_codes_range(d[0], d[1], d[2], start, rows - start))
@@ -85,13 +86,45 @@ def test_stream_counts_matches_host(cuda, chunk):
     before = counts.LAUNCHES["count_codes"]
     got = fastpath.stream_counts(ts, rows, masks, cuda, chunk_rows=chunk)
     assert counts.LAUNCHES["count_codes"] - before == -(-rows.size // chunk)
-    np.testing.assert_array_equal(got, host_counts(ts, rows, masks))
+    np.testing.assert_array_equal(
+        got, jax_host_counts(JaxTileStore(3000, 157 * 32, p0, p1), rows, masks))
+
+
+A_GROUPS = [1, 2, 7, 8, 9, 16, 32, 33, 600]
+A_WORDS = [1, 7, 8, 157, 2031, 2048]
+
+
+@pytest.mark.parametrize("words", A_WORDS)
+@pytest.mark.parametrize("groups", A_GROUPS)
+def test_kernel_a_groups_and_words(cuda, groups, words):
+    """Kernel A (tensor-core AND-popcount) at every octet boundary and
+    pass of groups and at word counts below, at and past its 16- and
+    32-word blocks, on a ragged 17-row tile and an offset range."""
+    d = [counts.planes_to_torch(a, cuda)
+         for a in _inputs(17, words, groups, seed=groups * 7 + words)]
+    plain = counts.count_codes_reference(*d)
+    assert torch.equal(counts.count_codes(*d), plain)
+    got = counts.count_codes_range(d[0], d[1], d[2], 1, 15)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain[1:16])
+
+
+@pytest.mark.parametrize("groups", [1, 8, 33])
+@pytest.mark.parametrize("rows", [1, 15, 16, 17, 100_003])
+def test_kernel_a_rows(cuda, rows, groups):
+    """Row counts below, at and past one 16-row tile, and many tiles with a
+    ragged last one, at the HRC width."""
+    d = [counts.planes_to_torch(a, cuda)
+         for a in _inputs(rows, 2031, groups, seed=rows + groups)]
+    got = counts.count_codes(*d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, counts.count_codes_reference(*d))
 
 
 @pytest.mark.parametrize("rows,words,groups", [(64, 157, 600), (3, 2031, 1000)],
                          ids=["64x157x600", "3x2031x1000"])
 def test_kernel_beyond_512_groups(cuda, rows, words, groups):
-    """Kernel A counts groups in chunks of 512 per launch: any count works."""
+    """Kernel A counts groups in passes of 40 per launch: any count works."""
     d = [counts.planes_to_torch(a, cuda)
          for a in _inputs(rows, words, groups, seed=groups)]
     got = counts.count_codes(*d)
@@ -209,15 +242,17 @@ def test_decode_ops_on_card_match_numpy(cuda, rows, words, start, length):
 
 def test_server_request_on_card_matches_host(cuda, tmp_path, monkeypatch):
     """One subset request to the port's server on the card equals
-    bgt_tpu's server on its host tier, and kernel A ran for it."""
+    bgt_tpu's server on its host tier, and kernel A ran for it.  Each server
+    gets its own package's ServerConfig and BgtFile."""
     import threading
     import urllib.request
 
-    from bgt_tpu import testing
-    from bgt_tpu.query import fastpath as host_fastpath
-    from bgt_tpu.query import importer
-    from bgt_tpu.query.engine import BgtFile
-    from bgt_tpu.server import server as host_server
+    from bgt_tpu.query import fastpath as jax_fastpath
+    from bgt_tpu.query.engine import BgtFile as JaxBgtFile
+    from bgt_tpu.server import server as jax_server
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.query import importer
+    from bgt_tpu_torch.query.engine import BgtFile
     from bgt_tpu_torch.server import server
 
     (tmp_path / "in.vcf").write_text(
@@ -225,11 +260,15 @@ def test_server_request_on_card_matches_host(cuda, tmp_path, monkeypatch):
     importer.import_vcf(str(tmp_path / "db"), [str(tmp_path / "in.vcf")],
                         is_vcf=True)
     (tmp_path / "db.spl").write_text(testing.random_spl(40, seed=3))
+    jax_cfg = jax_server.ServerConfig()
+    jax_cfg.port = 0
+    jax_cfg.files = [JaxBgtFile(str(tmp_path / "db"))]
+    jax_cfg.prefixes = ["db"]
     cfg = server.ServerConfig()
     cfg.port = 0
     cfg.files = [BgtFile(str(tmp_path / "db"))]
     cfg.prefixes = ["db"]
-    servers = [host_server.make_server(cfg), server.make_server(cfg, cuda)]
+    servers = [jax_server.make_server(jax_cfg), server.make_server(cfg, cuda)]
     for s in servers:
         threading.Thread(target=s.serve_forever, daemon=True).start()
     query = '?s=population=="YRI"&s=,S0001,S0002&f=AC1>AC2&C='
@@ -237,7 +276,7 @@ def test_server_request_on_card_matches_host(cuda, tmp_path, monkeypatch):
         bodies = []
         for s, tier in zip(servers, ("host", "device")):
             monkeypatch.setenv("BGT_TPU_COUNT_TIER", tier)
-            host_fastpath._COUNT_MEMO.clear()
+            jax_fastpath._COUNT_MEMO.clear()
             fastpath._COUNT_MEMO.clear()
             before = counts.LAUNCHES["count_codes"]
             url = f"http://127.0.0.1:{s.server_address[1]}/{query}"

@@ -1,8 +1,9 @@
 """bgt_tpu_torch's HTTP server against bgt_tpu's, byte for byte.
 
-One small cohort is served in-process by both servers from one
-``ServerConfig``: ``bgt_tpu``'s with ``BGT_TPU_COUNT_TIER=host`` and the
-port's on the CPU device with ``BGT_TPU_COUNT_TIER=device``.  Each request of
+One small cohort, written by the port's own importer, is served in-process
+by both servers, each from its own package's ``ServerConfig`` and
+``BgtFile``: ``bgt_tpu``'s with ``BGT_TPU_COUNT_TIER=host`` and the port's on
+the CPU device with ``BGT_TPU_COUNT_TIER=device``.  Each request of
 ``tests/test_server.py``'s query surface goes to both; status and body must
 be equal, and on subset and group queries the port's count op must have run.
 Requests go one at a time, except where a test fires them concurrently,
@@ -22,19 +23,33 @@ import urllib.request
 import pytest
 import torch
 
-from bgt_tpu import cli as host_cli
-from bgt_tpu import testing
-from bgt_tpu.formats.fmf import Fmf
+from bgt_tpu.formats.fmf import Fmf as JaxFmf
 from bgt_tpu.query import fastpath as jax_fastpath
-from bgt_tpu.query import importer
-from bgt_tpu.query.engine import BgtFile
+from bgt_tpu.query.engine import BgtFile as JaxBgtFile
 from bgt_tpu.server import server as jax_server
-from bgt_tpu_torch import cli
+from bgt_tpu_torch import cli, testing
+from bgt_tpu_torch.formats.fmf import Fmf
 from bgt_tpu_torch.ops import counts
-from bgt_tpu_torch.query import fastpath
+from bgt_tpu_torch.query import fastpath, importer
+from bgt_tpu_torch.query.engine import BgtFile
 from bgt_tpu_torch.server import server
 
 N_SAMPLES = 12
+
+
+class _Configs:
+    """The two servers' configs: reads come from the port's, and a setting
+    goes to both."""
+
+    def __init__(self, jax_cfg, port_cfg):
+        object.__setattr__(self, "pair", (jax_cfg, port_cfg))
+
+    def __getattr__(self, name):
+        return getattr(self.pair[1], name)
+
+    def __setattr__(self, name, value):
+        for c in self.pair:
+            setattr(c, name, value)
 
 
 @pytest.fixture(scope="module")
@@ -44,11 +59,15 @@ def served(tmp_path_factory):
         testing.random_vcf(n_samples=N_SAMPLES, n_sites=120, seed=21))
     importer.import_vcf(str(tmp / "db"), [str(tmp / "in.vcf")], is_vcf=True)
     (tmp / "db.spl").write_text(testing.random_spl(N_SAMPLES, seed=21))
-    cfg = server.ServerConfig()
+    jax_cfg = jax_server.ServerConfig()
+    jax_cfg.files = [JaxBgtFile(str(tmp / "db"))]
+    port_cfg = server.ServerConfig()
+    port_cfg.files = [BgtFile(str(tmp / "db"))]
+    cfg = _Configs(jax_cfg, port_cfg)
     cfg.port = 0
-    cfg.files = [BgtFile(str(tmp / "db"))]
     cfg.prefixes = ["db"]
-    servers = [jax_server.make_server(cfg), server.make_server(cfg, "cpu")]
+    servers = [jax_server.make_server(jax_cfg),
+               server.make_server(port_cfg, "cpu")]
     threads = [threading.Thread(target=s.serve_forever, daemon=True)
                for s in servers]
     for t in threads:
@@ -102,7 +121,7 @@ def both(served, query, monkeypatch):
 def _getalt(tmp) -> list[str]:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        assert host_cli.main(["getalt", str(tmp / "db")]) == 0
+        assert cli.main(["getalt", str(tmp / "db")]) == 0
     return buf.getvalue().splitlines()
 
 
@@ -191,7 +210,9 @@ def test_vardb_allele_expression_matches(served, monkeypatch):
              for i, k in enumerate(_getalt(tmp))]
     (tmp / "anno.fmf").write_text("\n".join(lines) + "\n")
     old = cfg.vardb
-    cfg.vardb = Fmf.read(str(tmp / "anno.fmf"))
+    jax_cfg, port_cfg = cfg.pair
+    jax_cfg.vardb = JaxFmf.read(str(tmp / "anno.fmf"))
+    port_cfg.vardb = Fmf.read(str(tmp / "anno.fmf"))
     try:
         for expr, status in (('impact=="HIGH"', 200), ('impact=="NONE"', 204)):
             query = "?a=" + urllib.parse.quote(expr) + "&C="
@@ -395,7 +416,7 @@ def test_cli_server_cuda_unavailable(served, capsys):
 def test_main_server_serves(served, monkeypatch):
     """``main_server`` on the CPU device serves the same bytes as
     bgt_tpu's server; ``files.no_file`` is restored afterwards."""
-    from bgt_tpu.io import files
+    from bgt_tpu_torch.io import files
     tmp, _cfg, jax_port, _p = served
     started = {}
     real_make = server.make_server

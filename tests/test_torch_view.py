@@ -1,9 +1,9 @@
 """bgt_tpu_torch's ``view`` path against bgt_tpu's, byte for byte.
 
-A small cohort is imported once; each query runs through the port's
-``main_view`` on the CPU device with the device count tier forced, through
-``bgt_tpu``'s ``main_view`` on its JAX-CPU device tier, and through
-``bgt_tpu``'s host tier.  All three outputs must be the same bytes, and the
+A small cohort is imported once, by the port's own importer; each query
+runs through the port's ``main_view`` on the CPU device with the device
+count tier forced, through ``bgt_tpu``'s ``main_view`` on its JAX-CPU device
+tier, and through ``bgt_tpu``'s host tier.  All three outputs must be the same bytes, and the
 port's count op must have run (otherwise rowstats or a memo answered).
 """
 
@@ -18,14 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from bgt_tpu import testing
-from bgt_tpu.ops.tiles import TileStore
+from bgt_tpu.ops.tiles import TileStore as JaxTileStore
 from bgt_tpu.query import fastpath as jax_fastpath
-from bgt_tpu.query import importer
 from bgt_tpu.query import view as jax_view
+from bgt_tpu_torch import testing
 from bgt_tpu_torch.ops import counts
-from bgt_tpu_torch.query import fastpath
-from bgt_tpu_torch.query import view
+from bgt_tpu_torch.ops.tiles import TileStore
+from bgt_tpu_torch.query import engine, fastpath, importer, view
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -115,7 +114,10 @@ def test_stream_counts_chunks_match_host(db):
     for chunk in (1, 16, 64, 1000):
         got = fastpath.stream_counts(ts, rows, masks, CPU, chunk_rows=chunk)
         np.testing.assert_array_equal(
-            got, jax_fastpath.host_counts(ts, rows, masks))
+            got, jax_fastpath.host_counts(JaxTileStore.open_or_build(db),
+                                          rows, masks))
+        np.testing.assert_array_equal(
+            got, fastpath.host_counts(ts, rows, masks))
     empty = fastpath.stream_counts(ts, rows[:0], masks, CPU)
     assert empty.shape == (0, 3, 4)
 
@@ -138,14 +140,75 @@ def test_device_tier_without_cuda_raises(db, monkeypatch):
         _run(view.main_view, QUERIES[0], db)  # default device: cuda
 
 
-def test_auto_tier_without_cuda_uses_host(db, monkeypatch, count_calls):
+def test_auto_tier_without_cuda_raises(db, monkeypatch, count_calls):
+    """Under the default tier a CUDA device with no CUDA raises: the host
+    never stands in for the card unasked.  Queries that rowstats answers
+    still need no device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
+    with pytest.raises(RuntimeError, match="BGT_TPU_COUNT_TIER=auto"):
+        _run(view.main_view, QUERIES[0], db)  # default device: cuda
     monkeypatch.setenv("BGT_TPU_COUNT_TIER", "host")
-    want = _run(jax_view.main_view, QUERIES[0], db)
+    want = _run(jax_view.main_view, ["-G", "-C"], db)
     monkeypatch.delenv("BGT_TPU_COUNT_TIER")
-    assert _run(view.main_view, QUERIES[0], db) == want
+    assert _run(view.main_view, ["-G", "-C"], db) == want
     assert not count_calls
+
+
+def _ctx(db, device):
+    bm = engine.BgtmReader([engine.open_bgt_cached(db)])
+    bm.prepare()
+    return fastpath.DbCtx(bm.bgt[0], None, torch.device(device))
+
+
+def test_count_tier_cuda_default_cut(db, monkeypatch):
+    """On a CUDA device ``auto`` keeps the host tier only for work below one
+    transfer of the planes (2 x plane0.nbytes), and takes the card above."""
+    monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
+    monkeypatch.delenv("BGT_TPU_HOST_WORK_MAX", raising=False)
+    monkeypatch.setattr(fastpath, "device_available", lambda device: True)
+    fastpath._DEVICE_CACHE.clear()
+    ctx = _ctx(db, "cuda")
+    ts = ctx.ts
+    one_transfer = 2 * ts.plane0.nbytes
+    per_row = ts.plane0.shape[1] * 4 * 3  # three masked passes, one mask
+    masks = np.zeros((1, ts.n_words), np.uint32)
+    below = one_transfer // per_row      # rows whose work is <= the cut
+    rows = np.arange(below)
+    assert rows.size * per_row <= one_transfer
+    assert ctx._count_tier(rows, masks, True) == "host"
+    rows = np.arange(below + 1)
+    assert rows.size * per_row > one_transfer
+    assert ctx._count_tier(rows, masks, True) == "device"
+    # the whole range with one mask is 1.5 transfers: the card
+    assert ctx._count_tier(np.arange(ts.n_rows), masks, True) == "device"
+    # the CPU device keeps bgt_tpu's 64 GiB default: the host tier
+    assert _ctx(db, "cpu")._count_tier(np.arange(ts.n_rows), masks,
+                                       True) == "host"
+
+
+@pytest.mark.parametrize("limit,want", [(0, "device"), (1 << 40, "host")])
+def test_count_tier_host_work_max_overrides(db, monkeypatch, limit, want):
+    monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
+    monkeypatch.setenv("BGT_TPU_HOST_WORK_MAX", str(limit))
+    monkeypatch.setattr(fastpath, "device_available", lambda device: True)
+    fastpath._DEVICE_CACHE.clear()
+    ctx = _ctx(db, "cuda")
+    masks = np.zeros((2, ctx.ts.n_words), np.uint32)
+    assert ctx._count_tier(np.arange(ctx.ts.n_rows), masks, True) == want
+
+
+def test_count_tier_without_cuda_raises_under_auto(db, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
+    ctx = _ctx(db, "cuda")
+    masks = np.zeros((1, ctx.ts.n_words), np.uint32)
+    with pytest.raises(RuntimeError, match="not available"):
+        ctx._count_tier(np.arange(4), masks, True)
+    monkeypatch.setenv("BGT_TPU_COUNT_TIER", "host")
+    assert ctx._count_tier(np.arange(4), masks, True) == "host"
 
 
 def test_column_shard_tile_raises(db, monkeypatch):
@@ -154,12 +217,12 @@ def test_column_shard_tile_raises(db, monkeypatch):
     TileStore.emit_shards(db, 2, 2)
     monkeypatch.setenv("BGT_TPU_TILE_SHARD", "0:2")
     monkeypatch.setenv("BGT_TPU_COUNT_TIER", "device")
-    jax_fastpath._TILE_CACHE.clear()
+    fastpath._TILE_CACHE.clear()
     try:
         with pytest.raises(ValueError, match="mesh"):
             _run(view.main_view, QUERIES[0], db, device=CPU)
     finally:
-        jax_fastpath._TILE_CACHE.clear()
+        fastpath._TILE_CACHE.clear()
 
 
 def test_cli_server_usage(capsys):
@@ -205,6 +268,7 @@ rc = cli.main(["view", "-G", "-C", "-s", 'population=="CEU"', sys.argv[2]],
 sys.stdout = real_out
 assert rc == 0 and calls and buf.getvalue().count("\n") > 3
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m == "bgt_tpu" or m.startswith("bgt_tpu.")]
 print("NO-JAX", len(mods))
 """
 
