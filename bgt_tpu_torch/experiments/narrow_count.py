@@ -4,7 +4,8 @@ The counterpart of ``docs/experiments/pallas_count.py``, whose Pallas
 kernel computed ``count_codes`` with the affine step inside the kernel, for
 at most 32 groups, at narrow row widths.  Its port is
 ``ops.counts.count_codes_narrow`` (``csrc/count_narrow.cu``: all masks in
-shared memory, several rows per warp).  For each shape this checks that
+shared memory, a warp per 16-row tile on the binary tensor cores, the
+tiles brought in by bulk copies).  For each shape this checks that
 kernel C equals the production ``count_codes`` (kernel A,
 ``csrc/count_codes.cu``) and the plain version exactly, then times C, A and
 the plain version

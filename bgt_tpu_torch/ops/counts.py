@@ -18,7 +18,9 @@ from ``csrc/``; on a CPU tensor the plain PyTorch version beside it:
   ``csrc/count_raw.cu`` (the roofline probe's streaming kernel);
 - ``count_codes_narrow``: the counts of ``count_codes`` for at most 32
   groups whose masks fit in one block's shared memory,
-  ``csrc/count_narrow.cu`` (several rows per warp, for narrow rows).
+  ``csrc/count_narrow.cu`` (for narrow rows: the masks staged once per
+  block, a warp per 16-row tile on the binary tensor cores, its tiles
+  brought in by bulk copies).
 
 The decode and gather ops (``decode_codes``, ``gather_codes``,
 ``gather_codes_range``, ``gt_pair_idx_range``) are plain torch ops on every
@@ -239,8 +241,9 @@ def count_raw(p0: torch.Tensor, p1: torch.Tensor,
 def count_codes_narrow(p0: torch.Tensor, p1: torch.Tensor,
                        masks: torch.Tensor) -> torch.Tensor:
     """The counts of :func:`count_codes`, (rows, groups, 4) int32, from the
-    kernel that stages all masks in shared memory and counts several rows
-    per warp.  It takes at most NARROW_MAX_GROUPS groups whose masks fit in
+    kernel that stages all masks in shared memory once per block and counts
+    each 16-row tile with one warp, every group in one pass over the rows.
+    It takes at most NARROW_MAX_GROUPS groups whose masks fit in
     NARROW_MAX_MASK_BYTES and raises ValueError outside those limits, on
     every device.  Its plain version is count_codes_reference."""
     _check(p0, p1, masks)

@@ -26,9 +26,9 @@ each fatal on failure:
    beside its bytes bound and share and, as a diagnostic, the time of the
    CUDA-core logic a design on the CUDA cores would issue at the SM clock
    read during the run; the plain version at 1 and 33 groups on the tile.
-   Each ``--baseline OLD.cu`` (a source of another revision of kernel A)
-   is also built, held equal to A and timed beside it in turns, at every
-   one of these shapes;
+   Each ``--baseline OLD.cu`` that exports ``bgt_count_codes`` (another
+   revision of kernel A) is also built, held equal to A and timed beside
+   it in turns, at every one of these shapes;
 5. the main path end to end: an HRC-shaped cohort (32,488 samples x 100,000
    sites) is generated, imported, and queried through ``bgt_tpu_torch.cli
    view`` with the device count tier forced, including one query of 8
@@ -40,8 +40,15 @@ each fatal on failure:
 7. kernels B (``count_raw``) and C (``count_codes_narrow``) against their
    plain versions on the card, exact int32 equality, at the probe's, the
    narrow experiment's, ragged, one-word and empty shapes, with the same
-   words as phase 3; C must refuse 33 groups and 32 masks of 2,048 words;
-   each timed beside its plain version and its bound;
+   words as phase 3; for C also rows, words and groups at the edges of its
+   16-row tile, 8-word k-step and octet, masks filling shared memory, and
+   planes whose tiles start unaligned; C must refuse 33 groups and 32
+   masks of 2,048 words.  B is timed beside its plain version and bound;
+   C beside kernel A in turns at 16,384 x 160 words x 2 groups (no share:
+   those planes stay in L2) and 105,730 x 157 at 1, 8 and 32 groups, each
+   beside its bytes bound and share, with each ``--baseline OLD.cu`` that
+   exports ``bgt_count_codes_narrow`` (another revision of C) held equal
+   to C and timed in the same turns;
 8. the ported roofline probe (``bgt_tpu_torch.tools.probe_roofline``, 30,000
    rows, k = 5), whose JSON is printed on one line and must time every
    variant, then the narrow-width experiment
@@ -151,10 +158,12 @@ def check_kernel(torch, counts, device) -> int:
     return worst
 
 
-def build_baseline(src: Path):
-    """``src``, a source exporting ``bgt_count_codes`` with the C signature
-    of ``csrc/count_codes.cu`` (an earlier revision of it), built with the
-    kernel library's nvcc flags into its build directory and loaded."""
+def build_baseline(src: Path) -> tuple[str, ctypes.CDLL]:
+    """``src``, another revision of kernel A or of kernel C, built with the
+    kernel library's nvcc flags into its build directory and loaded.
+    Returns the kernel it exports with the C signature of its source in
+    ``csrc/`` ("count_codes" for ``bgt_count_codes``, "count_codes_narrow"
+    for ``bgt_count_codes_narrow``) and the library."""
     from bgt_tpu_torch.ops import _kernels
     h = hashlib.sha256(" ".join(_kernels.NVCC_FLAGS).encode() + src.read_bytes())
     so = _kernels.BUILD_DIR / f"libbaseline-{h.hexdigest()[:16]}.so"
@@ -167,23 +176,58 @@ def build_baseline(src: Path):
             raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    lib.bgt_count_codes.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-    lib.bgt_count_codes.restype = ctypes.c_int
-    return lib
+    if hasattr(lib, "bgt_count_codes"):
+        lib.bgt_count_codes.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, vp]
+        lib.bgt_count_codes.restype = ctypes.c_int
+        return "count_codes", lib
+    if hasattr(lib, "bgt_count_codes_narrow"):
+        lib.bgt_count_codes_narrow.argtypes = [
+            vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, vp]
+        lib.bgt_count_codes_narrow.restype = ctypes.c_int
+        return "count_codes_narrow", lib
+    raise RuntimeError(f"{src} exports neither bgt_count_codes nor "
+                       "bgt_count_codes_narrow")
 
 
-def run_baseline(torch, lib, p0, p1, masks):
+def run_baseline(torch, kind, lib, p0, p1, masks):
+    """Launch ``lib``'s kernel of ``kind`` (see build_baseline) on the
+    current stream; returns its (rows, groups, 4) counts."""
     rows, words = p0.shape
     g = masks.shape[0]
     out = torch.empty((rows, g, 4), dtype=torch.int32, device=p0.device)
-    pop = torch.empty(g, dtype=torch.int32, device=p0.device)
-    err = lib.bgt_count_codes(p0.data_ptr(), p1.data_ptr(), masks.data_ptr(),
-                              pop.data_ptr(), out.data_ptr(), 0, rows, words,
-                              g, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "count_codes":
+        pop = torch.empty(g, dtype=torch.int32, device=p0.device)
+        err = lib.bgt_count_codes(p0.data_ptr(), p1.data_ptr(),
+                                  masks.data_ptr(), pop.data_ptr(),
+                                  out.data_ptr(), 0, rows, words, g, stream)
+    else:
+        err = lib.bgt_count_codes_narrow(p0.data_ptr(), p1.data_ptr(),
+                                         masks.data_ptr(), out.data_ptr(), 0,
+                                         rows, words, g, stream)
     if err != 0:
         raise RuntimeError(f"baseline launch failed: CUDA error {err}")
     return out
+
+
+def in_turns(fns: dict, order: list, device, reps: int) -> dict:
+    """Each of ``fns`` timed twice (``measure.time_ms``, median of
+    ``reps``), in turns: ``order``, then ``order`` reversed.  Returns
+    name -> [ms, ms]."""
+    from bgt_tpu_torch.tools.measure import time_ms
+    ms = {name: [] for name in order}
+    for name in order + order[::-1]:
+        ms[name].append(time_ms(fns[name], device, reps))
+    return ms
+
+
+def turns_text(ms: dict) -> str:
+    return " | turns: " + "; ".join(
+        f"{name} " + ", ".join(f"{t:.4f}" for t in ts)
+        for name, ts in ms.items()) + " ms"
 
 
 # phase 4's shapes: (label, rows, words, groups, groups timed against plain)
@@ -191,17 +235,18 @@ TIMED = [("tile", 1_000_000, 2031, (1, 2, 8, 16, 32, 33), (1, 33)),
          ("cohort", 100_000, 2048, (1, 2, 8), ())]
 
 
-def time_kernel(torch, counts, device, baselines=()) -> dict:
+def time_kernel(torch, counts, device, bases=None) -> dict:
     """Phase 4: kernel A's device ms at a full HRC-width tile (1-33 groups)
     and at the cohort's width (1, 2, 8 groups), each beside its bytes bound
     and share; the plain version at 1 and 33 groups on the tile.  A is
-    timed in two turns.  Each of ``baselines`` (sources of other revisions
-    of kernel A) is built, held equal to A, and timed beside it in those
-    turns: the baselines, A, A, the baselines in reverse."""
+    timed in two turns.  Each of ``bases`` (name -> library of another
+    revision of kernel A, from build_baseline) is held equal to A and timed
+    beside it in those turns: the baselines, A, A, the baselines in
+    reverse."""
     from bgt_tpu_torch.tools.measure import (count_bound_ms,
                                              cuda_core_logic_ms, sm_clock_mhz,
                                              time_ms)
-    bases = {src.stem: build_baseline(src) for src in baselines}
+    bases = bases or {}
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
     res = {}
@@ -216,7 +261,8 @@ def time_kernel(torch, counts, device, baselines=()) -> dict:
             "of planes on the card")
         for g in groups:
             m = masks[:g].contiguous()
-            fns = {name: (lambda lib=lib: run_baseline(torch, lib, p0, p1, m))
+            fns = {name: (lambda lib=lib: run_baseline(torch, "count_codes",
+                                                       lib, p0, p1, m))
                    for name, lib in bases.items()}
             fns["kernel"] = lambda: counts.count_codes(p0, p1, m)
             plain = g in plain_at
@@ -236,14 +282,9 @@ def time_kernel(torch, counts, device, baselines=()) -> dict:
             # two turns of each; the first timing at a new shape can run
             # slow (0.616 against 0.525 ms at the cohort's 1 group, H100
             # 80GB HBM3), so the lower of A's two medians is its time
-            order = [*bases, "kernel"]
-            ms = {name: [] for name in order}
-            for name in order + order[::-1]:
-                ms[name].append(time_ms(fns[name], device, reps))
+            ms = in_turns(fns, [*bases, "kernel"], device, reps)
             k_ms = min(ms["kernel"])
-            turns = " | turns: " + "; ".join(
-                f"{name} " + ", ".join(f"{t:.3f}" for t in ms[name])
-                for name in order) + " ms"
+            turns = turns_text(ms)
             mhz = sm_clock_mhz(device)
             bound = count_bound_ms(rows, words, g, 4)
             p_ms = (time_ms(lambda: counts.count_codes_reference(p0, p1, m),
@@ -434,13 +475,49 @@ PROBE_VARIANTS = ("proxy_reduce2", "proxy_reduce1", "proxy_popc1",
                   "count_stack_1mask", "count_raw_1mask")
 
 
-def check_raw_narrow(torch, counts, device) -> dict:
+# phase 7's exactness shapes of kernel C (rows, words, groups): the narrow
+# experiment's, rows against its 16-row tile, words against its 8-word
+# k-step, groups against its octets, the masks filling shared memory (the
+# path without the ring), one word, no rows
+NARROW_CHECKED = [(16384, 160, 2), (105730, 157, 1), (105730, 157, 8),
+                  (105730, 157, 32), (7, 157, 3), (1, 1, 1), (0, 157, 2),
+                  (1, 157, 8), (15, 157, 8), (16, 157, 8), (17, 157, 8),
+                  (33, 157, 8), (1000, 7, 9), (1000, 8, 9), (1000, 9, 9),
+                  (1000, 17, 9), (1000, 160, 9), (2000, 157, 7),
+                  (2000, 157, 9), (2000, 157, 31), (2000, 157, 32),
+                  (1000, 1816, 32)]
+# phase 7's timed shapes of C, beside A: (rows, words, groups)
+NARROW_TIMED = [(16384, 160, (2,)), (105730, 157, (1, 8, 32))]
+L2_BYTES = 50 * 2**20  # H100 SXM data sheet
+
+
+def planes_at(torch, rows, words, offsets, gen, device):
+    """Two (rows, words) int32 planes as views into one buffer, starting
+    ``offsets`` words past a 16-byte boundary, so that kernel C's tiles
+    start unaligned (its head rows) or never align (its path without the
+    ring)."""
+    flat = torch.zeros(2 * (rows * words + 4), dtype=torch.int32,
+                       device=device)
+    out = []
+    for i, off in enumerate(offsets):
+        lo = i * (rows * words + 4) + off
+        p = flat[lo: lo + rows * words].view(rows, words)
+        p.copy_(random_words(torch, (rows, words), gen, device))
+        out.append(p)
+    return out
+
+
+def check_raw_narrow(torch, counts, device, bases=None) -> dict:
     """Phase 7: kernels B and C == their plain versions, then their times
-    at the shapes of their paths; returns each one's largest |difference|
-    and (kernel ms, plain ms)."""
+    at the shapes of their paths: C beside kernel A in turns, with each of
+    ``bases`` (name -> library of another revision of kernel C, from
+    build_baseline) held equal to C and timed in the same turns.  Returns
+    each one's largest |difference| and (kernel ms, plain ms, bound ms,
+    bound by)."""
     from bgt_tpu_torch.tools.measure import (count_bound_ms,
                                              cuda_core_logic_ms, sm_clock_mhz,
                                              time_ms)
+    bases = bases or {}
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     worst = {"count_raw": 0, "count_codes_narrow": 0}
@@ -472,13 +549,18 @@ def check_raw_narrow(torch, counts, device) -> dict:
          counts.count_raw_reference(p0[start:start + length],
                                     p1[start:start + length], m),
          f"count_raw_range start={start} length={length}")
-    for rows, words, g in ((16384, 160, 2), (105730, 157, 1), (105730, 157, 8),
-                           (105730, 157, 32), (7, 157, 3), (1, 1, 1),
-                           (0, 157, 2)):
+    for rows, words, g in NARROW_CHECKED:
         p0, p1, m = words3(rows, words, g)
         same("count_codes_narrow", counts.count_codes_narrow(p0, p1, m),
              counts.count_codes_reference(p0, p1, m),
              f"rows={rows} words={words} groups={g}")
+    for offsets in ((1, 1), (0, 2)):  # head rows; no aligned tile start
+        p0, p1 = planes_at(torch, 1000, 157, offsets, gen, device)
+        m = random_words(torch, (32, 157), gen, device)
+        same("count_codes_narrow", counts.count_codes_narrow(p0, p1, m),
+             counts.count_codes_reference(p0, p1, m),
+             f"rows=1000 words=157 groups=32, planes {offsets} words past "
+             "16 bytes")
     for g, words in ((33, 157), (32, 2048)):
         p = torch.zeros((4, words), dtype=torch.int32, device=device)
         try:
@@ -489,31 +571,55 @@ def check_raw_narrow(torch, counts, device) -> dict:
         else:
             raise AssertionError(f"count_codes_narrow took {g} x {words}")
 
-    times = {}
-    logic = {}
     rows, words = 30000, 2048
     p0, p1, m = words3(rows, words, 1)
     k_ms = time_ms(lambda: counts.count_raw(p0, p1, m), device, 20)
-    logic["count_raw"] = cuda_core_logic_ms(rows, words, 1, sm_clock_mhz(device))
-    times["count_raw"] = (
-        k_ms, time_ms(lambda: counts.count_raw_reference(p0, p1, m), device, 5),
-        count_bound_ms(rows, words, 1, 3), "bytes")
-    rows, words, g = 105730, 157, 32
-    q0, q1, qm = words3(rows, words, g)
-    k_ms = time_ms(lambda: counts.count_codes_narrow(q0, q1, qm), device, 20)
-    logic["count_codes_narrow"] = cuda_core_logic_ms(rows, words, g,
-                                                     sm_clock_mhz(device))
-    times["count_codes_narrow"] = (
-        k_ms,
-        time_ms(lambda: counts.count_codes_reference(q0, q1, qm), device, 5),
-        count_bound_ms(rows, words, g, 4), "bytes")
-    for name, shape in (("count_raw", "30000 x 2048 words, 1 mask"),
-                        ("count_codes_narrow",
-                         "105730 x 157 words, 32 groups")):
-        k_ms, p_ms, b_ms, _ = times[name]
-        log(f"[timing] {name} at {shape}: kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by bytes, share "
-            f"{b_ms / k_ms:.3f} | CUDA-core logic {logic[name]:.4f} ms")
+    p_ms = time_ms(lambda: counts.count_raw_reference(p0, p1, m), device, 5)
+    b_ms = count_bound_ms(rows, words, 1, 3)
+    times = {"count_raw": (k_ms, p_ms, b_ms, "bytes")}
+    log(f"[timing] count_raw at 30000 x 2048 words, 1 mask: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by bytes, "
+        f"share {b_ms / k_ms:.3f} | CUDA-core logic "
+        f"{cuda_core_logic_ms(rows, words, 1, sm_clock_mhz(device)):.4f} ms")
+    del p0, p1, m
+
+    # C beside A (and the baselines) in turns: the baselines, C, A, then A,
+    # C, the baselines; each one's time is the lower of its two
+    for rows, words, groups in NARROW_TIMED:
+        q0, q1, qm = words3(rows, words, max(groups))
+        nbytes = 2 * rows * words * 4
+        for g in groups:
+            m = qm[:g].contiguous()
+            fns = {name: (lambda lib=lib: run_baseline(
+                torch, "count_codes_narrow", lib, q0, q1, m))
+                for name, lib in bases.items()}
+            fns["C"] = lambda: counts.count_codes_narrow(q0, q1, m)
+            fns["A"] = lambda: counts.count_codes(q0, q1, m)
+            got = fns["C"]()
+            for name in ("A", *bases):
+                if not torch.equal(got, fns[name]()):
+                    raise AssertionError(f"count_codes_narrow != {name} at "
+                                         f"{(rows, words, g)}")
+            del got
+            ms = in_turns(fns, [*bases, "C", "A"], device, 20)
+            c_ms, a_ms = min(ms["C"]), min(ms["A"])
+            b_ms = count_bound_ms(rows, words, g, 4)
+            if nbytes < L2_BYTES:
+                share = (f"no share: the planes ({nbytes / 1e6:.0f} MB) stay "
+                         f"in the {L2_BYTES / 2**20:.0f} MB L2 across "
+                         "repetitions")
+            else:
+                share = (f"share {b_ms / c_ms:.3f}, A's {b_ms / a_ms:.3f}")
+            p_ms = None
+            if (rows, g) == (105730, 32):
+                p_ms = time_ms(lambda: counts.count_codes_reference(q0, q1, m),
+                               device, 5)
+                times["count_codes_narrow"] = (c_ms, p_ms, b_ms, "bytes")
+            log(f"[timing] count_codes_narrow at {rows} x {words} words, {g} "
+                f"groups: C {c_ms:.4f} ms, A {a_ms:.4f} ms"
+                + (f", plain {p_ms:.4f} ms" if p_ms is not None else "")
+                + f" | bound {b_ms:.4f} ms by bytes, {share}" + turns_text(ms))
+        del q0, q1, qm
     return {"max_abs_err": worst, "times": times}
 
 
@@ -814,8 +920,10 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", type=Path, metavar="OLD.cu", action="append",
                     default=[],
                     help="a source of another revision of kernel A (the C "
-                         "entry point bgt_count_codes) to time beside A in "
-                         "phase 4; may be given more than once")
+                         "entry point bgt_count_codes), timed beside A in "
+                         "phase 4, or of kernel C (bgt_count_codes_narrow), "
+                         "timed beside C in phase 7; may be given more than "
+                         "once")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -848,14 +956,19 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
+    bases = {"count_codes": {}, "count_codes_narrow": {}}
+    for src in args.baseline:
+        kind, lib = build_baseline(src)
+        bases[kind][src.stem] = lib
+        log(f"[build] baseline {src}: {kind}")
     err3 = check_kernel(torch, counts, device)
-    timing = time_kernel(torch, counts, device, args.baseline)
+    timing = time_kernel(torch, counts, device, bases["count_codes"])
 
     prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
     launches = {"count_codes": main_path(torch, device, prefix, QUERIES)}
     log(f"[main] main-path kernel launches: {launches['count_codes']}")
 
-    rn = check_raw_narrow(torch, counts, device)
+    rn = check_raw_narrow(torch, counts, device, bases["count_codes_narrow"])
     launches.update(kernel_paths(torch, counts, device))
 
     server_launches = server_path(torch, device, prefix)

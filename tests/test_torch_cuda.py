@@ -174,18 +174,37 @@ def test_count_raw_kernel_unaligned_planes(cuda):
 
 
 # (rows, words, groups): the experiment's shapes (the 1kg width at 1, 8 and
-# 32 groups), ragged, one word (1 lane per row), 2 and 3 words, the
-# shared-memory limit, a wide row, no rows, no groups
+# 32 groups), ragged, one word, 2 and 3 words, the shared-memory limit (the
+# path without the ring), a wide row, no rows, no groups; then rows against
+# kernel C's 16-row tile, words against its 8-word k-step, groups against
+# its octets
 NARROW_SHAPES = [(16384, 160, 2), (105730, 157, 1), (105730, 157, 8),
                  (105730, 157, 32), (7, 157, 3), (1, 1, 1),
                  (33, 2, 9), (70, 3, 17), (64, 1816, 32), (1000, 2048, 8),
-                 (0, 157, 2), (5, 157, 0)]
+                 (0, 157, 2), (5, 157, 0),
+                 (1, 157, 8), (15, 157, 9), (16, 157, 8), (17, 157, 32),
+                 (33, 157, 7),
+                 (1000, 7, 9), (1000, 8, 8), (1000, 9, 31), (1000, 17, 32),
+                 (1000, 160, 9),
+                 (2000, 157, 7), (2000, 157, 8), (2000, 157, 9),
+                 (2000, 157, 31), (2000, 157, 32), (1000, 1816, 32)]
+
+
+def _first_row_edges(arrays):
+    """All-ones and sign-bit-only words across the first row of each array,
+    as chip_smoke.py's inputs have them."""
+    for a in arrays:
+        if a.shape[0]:
+            a[0, 0::3] = 0xFFFFFFFF
+            a[0, 1::3] = 0x80000000
+    return arrays
 
 
 @pytest.mark.parametrize("rows,words,groups", NARROW_SHAPES,
                          ids=[f"{r}x{w}x{g}" for r, w, g in NARROW_SHAPES])
 def test_count_narrow_kernel_matches_plain(cuda, rows, words, groups):
-    d = _on_card(cuda, _inputs(rows, words, groups, seed=rows * 3 + groups))
+    d = _on_card(cuda, _first_row_edges(
+        _inputs(rows, words, groups, seed=rows * 3 + groups)))
     before = counts.LAUNCHES["count_codes_narrow"]
     got = counts.count_codes_narrow(*d)
     assert counts.LAUNCHES["count_codes_narrow"] == before + (
@@ -194,6 +213,30 @@ def test_count_narrow_kernel_matches_plain(cuda, rows, words, groups):
     assert got.shape == (rows, groups, 4)
     assert torch.equal(got, counts.count_codes_reference(*d))
     assert torch.equal(got, counts.count_codes(*d))
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (2, 2), (3, 3), (0, 2), (1, 0)],
+                         ids=lambda o: f"p0+{o[0]},p1+{o[1]}")
+def test_count_narrow_kernel_unaligned_planes(cuda, offsets):
+    """Planes that start a few words past a 16-byte boundary: where a later
+    row starts both planes' 16-row tiles on one, kernel C counts the rows
+    before it from global memory and the rest through its ring; where none
+    does (p0 and p1 off by different amounts), every tile from global
+    memory."""
+    rows, words = 1000, 157
+    a, b, masks = _first_row_edges(_inputs(rows, words, 32, seed=11))
+    flat = torch.zeros(2 * (rows * words + 4), dtype=torch.int32, device=cuda)
+    planes = []
+    for i, (arr, off) in enumerate(zip((a, b), offsets)):
+        lo = i * (rows * words + 4) + off
+        p = flat[lo: lo + rows * words].view(rows, words)
+        p.copy_(counts.planes_to_torch(arr, cuda))
+        planes.append(p)
+    assert planes[0].data_ptr() % 16 == 4 * offsets[0]
+    m = counts.planes_to_torch(masks, cuda)
+    got = counts.count_codes_narrow(planes[0], planes[1], m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, counts.count_codes_reference(planes[0], planes[1], m))
 
 
 @pytest.mark.parametrize("groups,words", [(33, 157), (32, 2048)])

@@ -57,8 +57,12 @@ def _narrow(p0, p1, masks):
 
 
 # (rows, words, groups, row_tile): ragged row tiles, 1 to 32 groups, the
-# experiment's 160-word width and the 1kg bench width of 157
-INTERPRET_SHAPES = [(300, 157, 3, 64), (64, 157, 32, 64), (1, 160, 1, 512)]
+# experiment's 160-word width and the 1kg bench width of 157; then rows,
+# words and groups at the edges of the CUDA kernel's 16-row tile, 8-word
+# k-step and 8-group octet
+INTERPRET_SHAPES = [(300, 157, 3, 64), (64, 157, 32, 64), (1, 160, 1, 512),
+                    (17, 9, 9, 16), (33, 8, 8, 32), (15, 17, 31, 8),
+                    (16, 7, 7, 16), (1, 1, 32, 8)]
 
 
 @pytest.mark.parametrize("rows,words,groups,row_tile", INTERPRET_SHAPES,
