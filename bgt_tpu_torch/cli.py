@@ -339,7 +339,12 @@ def main_kexpr(argv, out=None, err=None) -> int:
 
 def _device_cmd(cmd: str, fn, argv, device) -> int:
     """``view``/``server`` on ``device``; a bad flag prints a message (the
-    other subcommands raise ``getopt.GetoptError`` as ``bgt_tpu``'s do)."""
+    other subcommands raise ``getopt.GetoptError`` as ``bgt_tpu``'s do).
+    Under torchrun (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``)
+    the process first joins its gloo group, and the query runs on the mesh
+    of every rank's slots."""
+    from .parallel import distributed
+    distributed.initialize()
     try:
         return fn(argv, device=device)
     except getopt.GetoptError as e:

@@ -27,6 +27,7 @@ import struct
 import numpy as np
 
 from ..formats.pbf import PbfReader
+from ..parallel.mesh import pad_words_for_mesh
 
 MAGIC_V1 = b"GTC\x01"
 MAGIC = b"GTC\x02"  # v2 appends the per-row all-columns code-count aggregate
@@ -39,13 +40,6 @@ COL_ALIGN = 1024
 def _pad_words(m: int) -> int:
     return (m + COL_ALIGN - 1) // COL_ALIGN * (COL_ALIGN // WORD_BITS)
 
-
-
-def pad_words_for_mesh(n_words: int, n_dev: int) -> int:
-    """Words padded to a multiple of ``n_dev``.  A copy of the one pure
-    function of ``parallel/mesh.py`` that the tile store needs: that module
-    imports the JAX mesh, which this package does not port yet."""
-    return (n_words + n_dev - 1) // n_dev * n_dev
 
 class TileStore:
     """In-memory (optionally disk-cached) packed genotype matrix.

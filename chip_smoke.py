@@ -64,11 +64,23 @@ each fatal on failure:
 10. ``bgt_tpu_torch.open(...).query`` under ``auto`` on the card against
    the same query on the host tier, in every array and the genotypes,
    ``entry()``'s forward on the card against the same forward on the CPU,
-   and the decode and gather ops on the card against a numpy unpack.
+   and the decode and gather ops on the card against a numpy unpack;
+11. the mesh on one card, on the cohort: in process with 2 slots
+   (``BGT_TPU_MESH_DEVICES=2``, 1,024 words each) the subset, two- and
+   eight-group and a GT-emitting query, and on a 2x2 mesh (4 slots,
+   ``BGT_TPU_MESH2=2x2``) the subset and GT queries, the device tier forced
+   and the crossover gate off; then ``gtcshard <prefix> 2 2`` and two gloo
+   ranks on this card (``chip_smoke.py --rank``, each opening only its
+   shard file) with the subset and GT queries cold and warm; then
+   ``entry.dryrun_multichip(4)``.  Every md5 must equal the host tier's, and
+   kernel A must launch once per slot per counted query.  For 1 slot, 2
+   slots, 2x2 and 2 ranks it prints the subset query's cold and warm
+   seconds, kernel A's device ms per slot and the gloo collectives' ms.
 
 The line before the last is a JSON object with each kernel's launches on its
-path, its largest difference from the plain version, its times and its
-bound; the last line is ``{"ok": true, "device": {...}}``.
+path (kernel A's: phases 5-6 and 11), its largest difference from the plain
+version, its times and its bound; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -385,8 +397,9 @@ def host_tier(fn):
         fastpath._COUNT_MEMO.clear()
 
 
-def main_path(torch, device, prefix: str, queries: dict) -> int:
-    """Phases 5 and 6; returns the kernel launches they made."""
+def main_path(torch, device, prefix: str, queries: dict) -> tuple[int, dict]:
+    """Phases 5 and 6; returns the kernel launches they made and each
+    query's host-tier md5."""
     from bgt_tpu_torch import cli
     from bgt_tpu_torch import log as port_log
     from bgt_tpu_torch.ops import counts
@@ -466,7 +479,7 @@ def main_path(torch, device, prefix: str, queries: dict) -> int:
     fastpath._DEVICE_CACHE.clear()
     if md5 != ref[name][0] or rose < 1 or not streamed:
         raise AssertionError("streamed tier failed")
-    return counts.LAUNCHES["count_codes"]
+    return counts.LAUNCHES["count_codes"], {q: r[0] for q, r in ref.items()}
 
 
 PROBE_VARIANTS = ("proxy_reduce2", "proxy_reduce1", "proxy_popc1",
@@ -912,6 +925,229 @@ QUERIES = {
                                         for pop in ("CEU", "YRI", "CHB", "TSI")
                                         for a in ("-s", f'population{op}"{pop}"'))],
 }
+# phase 11's GT-emitting query: four samples' genotypes over 300 kbp
+MESH_GT = ["-C", "-s", ",S00003,S00010,S00777,S32487",
+           "-r", "11:1000000-1300000"]
+# phase 11 in one process: (name, slots, environment, queries)
+MESH_CONFIGS = [
+    ("1 slot", 1, {}, ("subset -G -C",)),
+    ("2 slots", 2, {"BGT_TPU_MESH_DEVICES": "2"},
+     ("subset -G -C", "two-group -f AC1>AC2", "eight-group -G -C", "GT")),
+    ("2x2", 4, {"BGT_TPU_MESH_DEVICES": "4", "BGT_TPU_MESH2": "2x2"},
+     ("subset -G -C", "GT")),
+]
+MESH_ENV = ("BGT_TPU_COUNT_TIER", "BGT_TPU_SHARD_MIN_ROWS",
+            "BGT_TPU_MESH_DEVICES", "BGT_TPU_MESH2", "BGT_TPU_TILE_SHARD")
+RANK_TIMEOUT_S = 300
+
+
+def view_args(name: str) -> list:
+    return MESH_GT if name == "GT" else QUERIES[name]
+
+
+def counted_view(device, prefix: str, name: str) -> dict:
+    """One ``view`` query with the count memo cleared: its md5, wall
+    seconds and kernel A's launches (the count is set to 0 just before)."""
+    from bgt_tpu_torch import cli
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.query import fastpath
+    fastpath._COUNT_MEMO.clear()
+    counts.LAUNCHES["count_codes"] = 0
+    md5, dt, n, _err = capture(lambda: cli.main(
+        ["view", *view_args(name), prefix], device=device))
+    return {"md5": md5, "s": dt, "records": n,
+            "launches": counts.LAUNCHES["count_codes"]}
+
+
+def slot_kernel_ms(torch, device, p0, p1) -> tuple[float, float]:
+    """Kernel A's device ms on one slot's planes at one group, and its
+    bytes bound.  These launches are not the path's."""
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.tools.measure import count_bound_ms, time_ms
+    m = torch.full((1, p0.shape[1]), -1, dtype=torch.int32, device=device)
+    ms = time_ms(lambda: counts.count_codes(p0, p1, m), device, 20)
+    return ms, count_bound_ms(p0.shape[0], p0.shape[1], 1, 4)
+
+
+def collectives_text(stats: dict) -> str:
+    return "; ".join(
+        f"gloo {k} {v['calls']} calls, {v['ms']:.3f} ms"
+        + (f" ({v['ms'] / v['calls']:.3f} each)" if v["calls"] else "")
+        for k, v in stats.items())
+
+
+def rank_main(args) -> int:
+    """One rank of phase 11's two: joins the gloo group from torchrun's
+    environment (through the CLI), opens only its shard file
+    (BGT_TPU_TILE_SHARD), runs the subset and GT queries cold and warm, and
+    writes what it saw to ``args.out`` as JSON."""
+    import torch
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    from bgt_tpu_torch.query import fastpath
+
+    device = torch.device(args.device)
+    res = {"rank": int(os.environ["RANK"]), "queries": {}}
+    for name in ("subset -G -C", "GT"):
+        for run in ("cold", "warm"):
+            res["queries"][f"{name} {run}"] = counted_view(device, args.prefix,
+                                                           name)
+    ctx = fastpath.get_shard_context(device)
+    stores = list(fastpath._TILE_CACHE.values())
+    if ctx is None or not ctx.multi_process or not stores \
+            or not all(ts.is_shard for ts in stores):
+        raise AssertionError("the rank did not run on the mesh from its shard")
+    res["collectives"] = {k: dict(v) for k, v in meshlib.COLLECTIVES.items()}
+    ex = next(iter(ctx._planes.values()))
+    res["rows"], res["words"] = ex.p0[0].shape
+    res["kernel_ms"], res["bound_ms"] = slot_kernel_ms(torch, device,
+                                                       ex.p0[0], ex.p1[0])
+    res["imported"] = sorted({m.split(".")[0] for m in sys.modules}
+                             & {"jax", "bgt_tpu"})
+    Path(args.out).write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_ranks(device, prefix: str, work: Path) -> list:
+    """Phase 11 (b): the shard files of a two-process mesh, then two ranks
+    on this card, each a ``chip_smoke.py --rank`` process; returns their
+    results.  A rank that fails or outlives its timeout fails the phase."""
+    import socket
+
+    from bgt_tpu_torch import cli
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["gtcshard", prefix, "2", "2"]) != 0:
+            raise RuntimeError("gtcshard failed")
+    log(f"[mesh] gtcshard {prefix} 2 2: {time.perf_counter() - t0:.1f} s")
+    work.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items() if k not in MESH_ENV}
+    procs = []
+    try:
+        for k in (0, 1):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--rank",
+                 "--prefix", prefix, "--out", str(work / f"rank{k}.json"),
+                 "--device", str(device)],
+                env={**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+                     "RANK": str(k), "WORLD_SIZE": "2",
+                     "BGT_TPU_TILE_SHARD": f"{k}:2"},
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for k, p in enumerate(procs):
+            out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {k} exited {p.returncode}:\n"
+                                   f"{out[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for k in (0, 1):
+            Path(f"{prefix}.gtc.shard-{k}-of-2").unlink(missing_ok=True)
+    return [json.loads((work / f"rank{k}.json").read_text()) for k in (0, 1)]
+
+
+def mesh_path(torch, device, prefix: str, ref: dict) -> int:
+    """Phase 11, the mesh on one card: (a) in process, 1 slot, 2 slots and
+    a 2x2 mesh, the device tier forced and the crossover gate off; (b) two
+    gloo ranks on this card, each opening only its shard file; (c)
+    ``dryrun_multichip(4)``.  Every md5 must equal the host tier's and
+    kernel A must run on every slot of every counted query.  Returns kernel
+    A's launches on the mesh path (in process and in both ranks)."""
+    from bgt_tpu_torch import cli, entry
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    from bgt_tpu_torch.query import fastpath
+    from bgt_tpu_torch.tools.measure import describe
+
+    card = ", ".join(str(x) for x in describe(device))
+    ref = {**ref, "GT": host_tier(lambda: cli.main(
+        ["view", *MESH_GT, prefix], device=device))[0]}
+    launches = 0
+
+    def release():
+        fastpath.reset_shard_context()
+        fastpath._DEVICE_CACHE.clear()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    for label, slots, env, names in MESH_CONFIGS:
+        release()
+        set_env(**{k: None for k in MESH_ENV})
+        set_env(BGT_TPU_COUNT_TIER="device", BGT_TPU_SHARD_MIN_ROWS="0", **env)
+        runs = []
+        for name in names:
+            for run in (("cold", "warm") if name == "subset -G -C"
+                        else ("",)):
+                got = counted_view(device, prefix, name)
+                runs.append((name, run, got))
+                log(f"[mesh] {label}: {' '.join((name, run)).strip()}: "
+                    f"{got['s']:.3f} s, "
+                    f"{got['records']} records, md5 {got['md5']}, kernel "
+                    f"launches +{got['launches']}")
+                if got["md5"] != ref[name]:
+                    raise AssertionError(f"mesh {label} {name}: md5 != host tier")
+                if got["launches"] != slots:
+                    raise AssertionError(f"mesh {label} {name}: kernel A "
+                                         f"launched {got['launches']} times "
+                                         f"for {slots} slots")
+                launches += got["launches"]
+        ctx = fastpath.get_shard_context(device)
+        kinds = [e.kind for e in ctx._planes.values()] if ctx else []
+        if kinds != {1: [], 2: ["s"], 4: ["rs"]}[slots]:
+            raise AssertionError(f"mesh {label}: executors {kinds}")
+        if ctx is None:
+            dt = next(iter(fastpath._DEVICE_CACHE.values()))
+            p0, p1 = dt.p0, dt.p1
+        else:
+            ex = next(iter(ctx._planes.values()))
+            p0, p1 = ex.p0[0], ex.p1[0]
+        ms, bound = slot_kernel_ms(torch, device, p0, p1)
+        cold, warm = (r[2]["s"] for r in runs[:2])
+        log(f"[mesh] {label}: subset cold {cold:.3f} s, warm {warm:.3f} s; "
+            f"kernel A {ms:.4f} ms per slot on {p0.shape[0]} x {p0.shape[1]} "
+            f"words at 1 group (bound {bound:.4f} ms, share "
+            f"{bound / ms:.3f}); no gloo collective (one process) | {card}")
+    release()
+    set_env(**{k: None for k in MESH_ENV})
+
+    ranks = two_ranks(device, prefix, REPO / "build" / "chip_smoke" / "ranks")
+    for res in ranks:
+        for key, got in res["queries"].items():
+            name = key.rsplit(" ", 1)[0]
+            log(f"[mesh] 2 ranks: rank {res['rank']} {key}: {got['s']:.3f} s, "
+                f"{got['records']} records, md5 {got['md5']}, kernel "
+                f"launches +{got['launches']}")
+            if got["md5"] != ref[name]:
+                raise AssertionError(f"rank {res['rank']} {key}: md5 != host "
+                                     "tier")
+            if got["launches"] != 1:
+                raise AssertionError(f"rank {res['rank']} {key}: kernel A "
+                                     f"launched {got['launches']} times")
+            launches += got["launches"]
+        if res["imported"]:
+            raise AssertionError(f"rank {res['rank']} imported "
+                                 f"{res['imported']}")
+        q = res["queries"]
+        log(f"[mesh] 2 ranks: rank {res['rank']}: subset cold "
+            f"{q['subset -G -C cold']['s']:.3f} s (group join, shard load "
+            f"and placement included), warm {q['subset -G -C warm']['s']:.3f} "
+            f"s; kernel A {res['kernel_ms']:.4f} ms per slot on {res['rows']} "
+            f"x {res['words']} words at 1 group (bound {res['bound_ms']:.4f} "
+            f"ms); {collectives_text(res['collectives'])} | {card}")
+
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(4, device)
+    log(f"[mesh] dryrun_multichip(4, {device}): counts "
+        f"{out['counts'].shape}, keep {int(out['keep'].sum())} of "
+        f"{out['keep'].size}, 2-axis pairs {out['pairs2'].shape}, production "
+        f"2x2 view equal to the host tier, in {time.perf_counter() - t0:.2f} s")
+    if meshlib.COLLECTIVES["all_reduce"]["calls"]:
+        raise AssertionError("an in-process mesh made a gloo collective")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -924,7 +1160,17 @@ def main(argv=None) -> int:
                          "phase 4, or of kernel C (bgt_count_codes_narrow), "
                          "timed beside C in phase 7; may be given more than "
                          "once")
+    ap.add_argument("--rank", action="store_true",
+                    help="run as one rank of phase 11 (its environment names "
+                         "the group: MASTER_ADDR, MASTER_PORT, RANK, "
+                         "WORLD_SIZE), on --prefix, writing --out")
+    ap.add_argument("--prefix", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda:0", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank:
+        sys.path.insert(0, str(REPO))
+        return rank_main(args)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -965,8 +1211,9 @@ def main(argv=None) -> int:
     timing = time_kernel(torch, counts, device, bases["count_codes"])
 
     prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
-    launches = {"count_codes": main_path(torch, device, prefix, QUERIES)}
-    log(f"[main] main-path kernel launches: {launches['count_codes']}")
+    view_launches, ref = main_path(torch, device, prefix, QUERIES)
+    launches = {"count_codes": view_launches}
+    log(f"[main] main-path kernel launches: {view_launches}")
 
     rn = check_raw_narrow(torch, counts, device, bases["count_codes_narrow"])
     launches.update(kernel_paths(torch, counts, device))
@@ -975,8 +1222,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 3)
     more = api_entry_decode(torch, device, prefix, gen)
-    log(f"[paths] count_codes launches: view {launches['count_codes']}, "
-        f"server {server_launches}, api {more['api']}, entry {more['entry']}")
+    mesh_launches = mesh_path(torch, device, prefix, ref)
+    launches["count_codes"] += mesh_launches
+    log(f"[paths] count_codes launches: view {view_launches}, "
+        f"server {server_launches}, api {more['api']}, entry {more['entry']}, "
+        f"mesh {mesh_launches}")
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")

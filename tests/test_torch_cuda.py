@@ -332,3 +332,127 @@ def test_server_request_on_card_matches_host(cuda, tmp_path, monkeypatch):
         for s in servers:
             s.shutdown()
             s.server_close()
+
+
+# The shard bodies of parallel/mesh.py on 2, 4 and 8 slots of one card.  Per
+# slot: 157 words pad to 158/160 (79, 40, 20 words: A's scalar and 128-bit
+# loads), 2,031 to 2,032 (1,016 and 508: 128-bit; 254 at 8: scalar), 2,048
+# to 1,024/512/256 (128-bit); 1 and 2 groups take A's carry-save path.
+MESH_SLOTS = [2, 4, 8]
+MESH_WORDS = [157, 2031, 2048]
+MESH_GROUPS = [1, 2, 8, 33]
+
+
+@pytest.mark.parametrize("groups", MESH_GROUPS)
+@pytest.mark.parametrize("words", MESH_WORDS)
+@pytest.mark.parametrize("slots", MESH_SLOTS)
+def test_mesh_bodies_on_card(cuda, slots, words, groups):
+    """Every shard body against the plain single-device version on the same
+    card: counts exact int32, codes and pairs exact uint8; kernel A runs once
+    per slot."""
+    from bgt_tpu_torch.parallel import mesh
+    rows = 301
+    p0, p1, masks = _inputs(rows, words, groups, seed=slots * 7919 + words + groups)
+    d = [counts.planes_to_torch(a, cuda) for a in (p0, p1, masks)]
+    plain = counts.count_codes_reference(*d)
+    codes = counts.decode_codes(d[0], d[1])
+    rows_idx = np.array([0, 5, rows - 1, 17, 17, 150])
+    want_pairs = (codes[rows_idx][:, 0::2] << 2) | codes[rows_idx][:, 1::2]
+
+    m = mesh.make_mesh([cuda] * slots)
+    s0, s1, sm = mesh.shard_planes(m, p0, p1, masks)
+    assert all(t.is_contiguous() and t.device.type == "cuda"
+               for t in s0 + s1 + sm)
+    before = counts.LAUNCHES["count_codes"]
+    got = mesh.sharded_count_fn(m)(s0, s1, sm)
+    assert counts.LAUNCHES["count_codes"] - before == slots
+    assert torch.equal(got, plain)
+    got = mesh.sharded_count_range_fn(m)(s0, s1, sm, 17, 250)
+    assert torch.equal(got, plain[17:267])
+    pairs = mesh.sharded_pairs_rows_fn(m)(s0, s1, rows_idx)
+    assert torch.equal(pairs[:, : words * 16], want_pairs)
+    gathered = mesh.sharded_gather_codes_fn(m)(s0, s1)
+    assert torch.equal(gathered[:, : words * 32], codes)
+
+    m2 = mesh.make_mesh2(2, [cuda] * slots)
+    q0, q1, qm = mesh.shard_planes2(m2, p0, p1, masks)
+    blocks = mesh.sharded_count2_fn(m2)(q0, q1, qm)
+    assert torch.equal(torch.cat(blocks)[:rows], plain)
+    pairs2 = mesh.sharded_pairs_rows2_fn(m2)(q0, q1, rows_idx)
+    assert torch.equal(pairs2[:, : words * 16], want_pairs)
+    torch.cuda.synchronize()
+
+
+_CARD_RANK = r"""
+import io, json, os, sys
+rank, port, db, repo = sys.argv[1:5]
+sys.path.insert(0, repo)
+import torch
+from bgt_tpu_torch.parallel import distributed
+distributed.initialize("127.0.0.1:" + port, 2, int(rank), timeout_s=120)
+from bgt_tpu_torch.ops import counts
+from bgt_tpu_torch.query import fastpath
+from bgt_tpu_torch.query.view import main_view
+os.environ["BGT_TPU_COUNT_TIER"] = "device"
+buf = io.StringIO()
+assert main_view(["-G", "-C", "-s", 'population=="CEU"', db], out=buf,
+                 device="cuda:0") == 0
+ctx = fastpath.get_shard_context(torch.device("cuda:0"))
+assert ctx is not None and ctx.multi_process and ctx.n_dev == 2
+print(json.dumps({"out": buf.getvalue(), "launches": counts.LAUNCHES["count_codes"]}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_ranks_on_one_card(cuda, tmp_path, monkeypatch):
+    """Two gloo ranks on cuda:0, one slot each, each placing its column
+    slice of the full tiles: both write the port's host-tier bytes, and
+    kernel A ran once in each."""
+    import io
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.ops import _kernels
+    from bgt_tpu_torch.query import importer
+    from bgt_tpu_torch.query.view import main_view
+
+    (tmp_path / "in.vcf").write_text(
+        testing.random_vcf(n_samples=300, n_sites=200, seed=9))
+    db = str(tmp_path / "db")
+    importer.import_vcf(db, [str(tmp_path / "in.vcf")], is_vcf=True)
+    (tmp_path / "db.spl").write_text(testing.random_spl(300, seed=9))
+    monkeypatch.setenv("BGT_TPU_COUNT_TIER", "host")
+    fastpath._COUNT_MEMO.clear()
+    buf = io.StringIO()
+    assert main_view(["-G", "-C", "-s", 'population=="CEU"', db], out=buf,
+                     device=cuda) == 0
+    _kernels.library()  # built once, before the ranks load it
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BGT_TPU_", "MASTER_"))}
+    repo = str(Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", _CARD_RANK, str(r), port,
+                               db, repo], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, env=env)
+             for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err.decode()[-3000:]
+            outs.append(json.loads(out.decode().strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for res in outs:
+        assert res["out"] == buf.getvalue() and res["out"].count("\n") > 100
+        assert res["launches"] == 1

@@ -3,8 +3,9 @@ and its copies write and print the same bytes as bgt_tpu's.
 
 - Every ``.py`` of the package and ``chip_smoke.py`` is parsed with ``ast``:
   no ``import`` names ``bgt_tpu`` (other than ``bgt_tpu_torch``) or ``jax``.
-- A fresh interpreter imports every module of the package and finds neither
-  ``bgt_tpu`` nor ``jax`` in ``sys.modules``.
+- A fresh interpreter imports every module of the package (the mesh's
+  ``parallel/mesh.py``, ``parallel/distributed.py`` and ``core/xp_torch.py``
+  among them) and finds neither ``bgt_tpu`` nor ``jax`` in ``sys.modules``.
 - ``bgt import`` of one VCF through each package: every file of the two
   databases is the same bytes.
 - The subcommands that never touch a device (``kexpr``, ``fmf``,
@@ -61,6 +62,9 @@ mods = [m.name for m in pkgutil.walk_packages(bgt_tpu_torch.__path__,
                                               "bgt_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+mesh_mods = {"bgt_tpu_torch.parallel.mesh", "bgt_tpu_torch.parallel.distributed",
+             "bgt_tpu_torch.core.xp_torch"}
+assert mesh_mods <= set(mods), sorted(mesh_mods - set(mods))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("bgt_tpu", "jax", "jaxlib"))
 assert not foreign, foreign
@@ -74,7 +78,7 @@ def test_every_module_imports_alone():
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED" in res.stdout
-    assert int(res.stdout.split()[-1]) >= 30
+    assert int(res.stdout.split()[-1]) >= 33
 
 
 @pytest.fixture(scope="module")

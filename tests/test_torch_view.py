@@ -212,8 +212,9 @@ def test_count_tier_without_cuda_raises_under_auto(db, monkeypatch):
 
 
 def test_column_shard_tile_raises(db, monkeypatch):
-    """The mesh is not ported: a column-shard tile store raises, it does not
-    count a slice of the columns."""
+    """With one slot and no process group there is no mesh: a column-shard
+    tile store raises, as in ``bgt_tpu``; it does not count a slice of the
+    columns."""
     TileStore.emit_shards(db, 2, 2)
     monkeypatch.setenv("BGT_TPU_TILE_SHARD", "0:2")
     monkeypatch.setenv("BGT_TPU_COUNT_TIER", "device")
