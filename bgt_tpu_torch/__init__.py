@@ -8,8 +8,10 @@ runtime, ``ops/tiles.py``, ``query/engine.py``, ``query/importer.py``,
 CUDA kernels for Hopper (``csrc/``), the decode and gather ops, the device
 count tiers of the query path (``query/fastpath.py``), the entry points
 (``cli`` with every subcommand, ``view``, ``server``, the ``api`` and
-``open``, ``entry``), the device trace, and the count-kernel probes
-(``tools/probe_roofline.py``, ``experiments/narrow_count.py``).
+``open``, ``entry``), the PBWT decode scan (``ops/decode.py``, its kernel
+``csrc/pbwt_decode.cu``), the device trace, and the count-kernel probes
+(``tools/probe_roofline.py``, ``experiments/narrow_count.py``); and copies
+of the ``misc/`` metadata converters.
 """
 
 

@@ -108,5 +108,8 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, vp]
             lib.bgt_count_codes_narrow.restype = ctypes.c_int
+            lib.bgt_pbwt_decode.argtypes = [vp] * 9 + [ctypes.c_int,
+                                                       ctypes.c_int, vp]
+            lib.bgt_pbwt_decode.restype = ctypes.c_int
             _lib[0] = lib
         return _lib[0]

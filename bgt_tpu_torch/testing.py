@@ -283,3 +283,29 @@ def synth_gt_bcf_to_file(path: str,
                 print(f"[synth] {hi}/{n_sites} sites", file=sys.stderr,
                       flush=True)
         out.close()
+
+
+def pbwt_codes(n_rows: int, m: int, seed: int = 0) -> np.ndarray:
+    """(n_rows, m) uint8 genotype codes made from ``seed`` for the PBWT
+    decoder's checks: random rows of every code, then in turn an all-zero
+    row (one run of m in both planes), an all-three row (both planes all
+    ones) and a sparse row (runs of 16 and more after the transform)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(4, size=(n_rows, m),
+                       p=[0.55, 0.3, 0.05, 0.1]).astype(np.uint8)
+    for r in range(3, n_rows, 5):
+        codes[r] = 0
+    for r in range(4, n_rows, 5):
+        codes[r] = 3
+    for r in range(5, n_rows, 5):
+        codes[r] = rng.choice(4, size=m, p=[0.97, 0.01, 0.01, 0.01])
+    return codes
+
+
+def write_pbf(path: str, codes: np.ndarray, shift: int) -> None:
+    """``codes`` as a 2-plane PBF (bit 0, then bit 1 of each code), with a
+    checkpoint every 2^shift rows."""
+    from .formats.pbf import PbfWriter
+    with PbfWriter(path, codes.shape[1], 2, shift) as w:
+        for row in codes:
+            w.write_row([row & 1, row >> 1])

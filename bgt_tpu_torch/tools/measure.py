@@ -62,6 +62,17 @@ def count_bound_ms(rows: int, words: int, groups: int, out_ints: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def decode_bound_ms(scans: int, rows: int, m: int, run_bytes: int) -> float:
+    """The least time of a PBWT decode of ``scans`` scans with ``rows`` rows
+    in all at ``m`` haplotypes from ``run_bytes`` bytes of runs (the RLE
+    bytes and their int64 row offsets): the runs, each scan's S0 and offset
+    read once, the (rows, m) uint8 rows and each scan's final S written
+    once, at the memory rate.  No operations term: the work is integer logic
+    and scattered byte stores, for which the data sheet gives no peak."""
+    nbytes = run_bytes + scans * (8 * m + 8) + rows * m
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def cuda_core_logic_ms(rows: int, words: int, groups: int,
                        sm_mhz: float) -> float:
     """The time of the three masked ANDs per word per group (p0 & m, p1 & m,

@@ -75,10 +75,22 @@ each fatal on failure:
    ``entry.dryrun_multichip(4)``.  Every md5 must equal the host tier's, and
    kernel A must launch once per slot per counted query.  For 1 slot, 2
    slots, 2x2 and 2 ranks it prints the subset query's cold and warm
-   seconds, kernel A's device ms per slot and the gloo collectives' ms.
+   seconds, kernel A's device ms per slot and the gloo collectives' ms;
+12. kernel D (``pbwt_decode``, the PBWT decode scan) against its plain
+   version on the card, exact equality of the rows and the final S, at 1,
+   31, 33, 1,025 and 64,976 haplotypes x 0, 1, 17 and 64 rows (one run a
+   row to more runs than the block's threads; all-zero, all-one and sparse
+   rows), on padded runs and on RLE bytes, and in ragged batches of one
+   launch; then the cohort's PBF decoded block by block
+   (``decode.iter_block_codes``: every block equal to the resident planes'
+   codes, every final S equal to the next block's checkpoint) and
+   ``decode_pbf_on_device`` over 16,384 rows against the host; then D's
+   time on the whole cohort (26 scans in one launch) beside its bytes
+   bound and the plain version's time, and the cost of its output
+   scatter (all-zero rows from random and from identity permutations).
 
 The line before the last is a JSON object with each kernel's launches on its
-path (kernel A's: phases 5-6 and 11), its largest difference from the plain
+path (kernel A's: phases 5-6 and 11; D's: phase 12), its largest difference from the plain
 version, its times and its bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -108,6 +120,9 @@ KERNELS = {
                   "tools/probe_roofline.py:190"),  # _kern
     "count_codes_narrow": ("bgt_tpu_torch/csrc/count_narrow.cu",
                            "docs/experiments/pallas_count.py:29"),  # _count_kernel
+    # decode_block: an XLA lax.scan, not a Pallas kernel
+    "pbwt_decode": ("bgt_tpu_torch/csrc/pbwt_decode.cu",
+                    "bgt_tpu/ops/decode.py:63"),
 }
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at a 700 W power limit
 
@@ -1150,6 +1165,239 @@ def mesh_path(torch, device, prefix: str, ref: dict) -> int:
     return launches
 
 
+# phase 12's exactness shapes of kernel D: haplotypes (one run a row; a
+# word of 32 and a ragged last word; rows of more runs than the block's
+# 1,024 threads at HRC width) and rows per block
+DECODE_M = (1, 31, 33, 1025, 64_976)
+DECODE_ROWS = (0, 1, 17, 64)
+DECODE_HOST_ROWS = 16_384  # decode_pbf_on_device's check against the host
+SMS = 132
+
+
+def scatter_cost(torch, device, m: int, rows: int, scans: int) -> str:
+    """Kernel D's output scatter, measured with the kernel itself: ``scans``
+    scans of ``rows`` all-zero rows at ``m`` haplotypes (one run a row, so
+    every row runs the same instructions and S' = S), once from random
+    permutations (each row's output bytes scattered) and once from the
+    identity (the same stores, coalesced).  Returns the two times and their
+    difference per row as a line of text."""
+    from bgt_tpu_torch.formats.pbf import rle_encode
+    from bgt_tpu_torch.ops import decode
+    from bgt_tpu_torch.tools.measure import time_ms
+    row = rle_encode(np.zeros(m, np.uint8))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 12)
+    ident = torch.arange(m, dtype=torch.int32, device=device).repeat(scans, 1)
+    perm = torch.stack([torch.randperm(m, generator=gen, device=device)
+                        for _ in range(scans)]).to(torch.int32)
+    ms = {}
+    for name, S0s in (("coalesced", ident), ("scattered", perm)):
+        batch = decode.CsrBatch(
+            S0s, torch.from_numpy(np.tile(np.frombuffer(row, np.uint8),
+                                          rows * scans)).to(device),
+            torch.arange(rows * scans + 1, dtype=torch.int64,
+                         device=device) * len(row), [rows] * scans, m)
+        out, S = decode.decode_csr(batch)
+        torch.cuda.synchronize()
+        if int(out.max()) != 0 or not torch.equal(S, S0s):
+            raise AssertionError("all-zero rows did not decode to zeros")
+        del out, S
+        ms[name] = time_ms(lambda: decode.decode_csr(batch), device, 3)
+    return (f"{scans} scans x {rows} all-zero rows at m={m}: output "
+            f"coalesced (identity S) {ms['coalesced']:.3f} ms, scattered "
+            f"(random S) {ms['scattered']:.3f} ms; the scatter costs "
+            f"{(ms['scattered'] - ms['coalesced']) / rows * 1e3:.2f} of "
+            f"{ms['scattered'] / rows * 1e3:.2f} us a row")
+
+
+def decode_path(torch, device, prefix: str) -> dict:
+    """Phase 12: kernel D (the PBWT decode scan) against its plain version
+    on the card at the edge shapes, then the cohort's PBF decoded block by
+    block through ``decode.iter_block_codes`` (every block equal to the
+    resident planes' codes, every final S equal to the next checkpoint) and
+    ``decode_pbf_on_device`` against the host, then D's and the plain
+    version's times on the whole cohort in one batch.  Returns D's launches
+    on that path, its largest difference from the plain version and its
+    times."""
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.ops import counts, decode
+    from bgt_tpu_torch.ops.tiles import TileStore
+    from bgt_tpu_torch.tools.measure import decode_bound_ms, describe, time_ms
+
+    card = ", ".join(str(x) for x in describe(device))
+    work = REPO / "build" / "chip_smoke" / "decode"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def same(what, got, want):
+        """(rows, S) pairs equal; a mismatch raises, so the largest
+        difference of what passes is 0."""
+        torch.cuda.synchronize()
+        if got[0].shape != want[0].shape or not torch.equal(got[0], want[0]) \
+                or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"kernel D != plain at {what}")
+
+    def edge_block(rows, m, seed):
+        path = str(work / f"edge-{rows}x{m}.pbf")
+        testing.write_pbf(path, testing.pbwt_codes(max(rows, 1), m, seed), 8)
+        blk = next(decode.read_blocks(path))
+        return blk.S, [r[:rows] for r in blk.rle]
+
+    t0 = time.perf_counter()
+    for m in DECODE_M:
+        for rows in DECODE_ROWS:
+            S, rle = edge_block(rows, m, SEED + m + rows)
+            runs = []
+            for gi in range(2):
+                S0 = torch.from_numpy(S[gi]).to(device)
+                lens, bits = decode.pack_block(rle[gi], m, device)
+                want = decode.decode_block_reference(S0, lens, bits, m)
+                same(f"rows={rows} m={m} plane {gi} padded",
+                     decode.decode_block(S0, lens, bits, m), want)
+                got, got_S = decode.decode_csr(
+                    decode.pack_csr(S[gi: gi + 1], [rle[gi]], m, device))
+                same(f"rows={rows} m={m} plane {gi} RLE bytes",
+                     (got, got_S[0]), want)
+                runs.append(lens.shape[1])
+            log(f"[decode] rows={rows} m={m}: max_runs {runs[0]} / {runs[1]} "
+                "(planes 0 / 1); D on padded runs and on RLE bytes equal "
+                "to the plain version, rows and final S: OK")
+    for m, sizes in ((1025, (17, 0, 64, 1)), (64_976, (64, 17))):
+        S0s, rle, rows = [], [], []
+        for i, n in enumerate(sizes):
+            S, r = edge_block(n, m, SEED + 7 * i)
+            S0s += [S[0], S[1]]
+            rle += r
+            rows += [n, n]
+        # every scan's rows padded to the batch's longest row
+        lens, bits = decode.pack_block([x for r in rle for x in r], m, device)
+        S0 = torch.from_numpy(np.stack(S0s)).to(device)
+        got, got_S = decode.decode_blocks(S0, lens, bits, rows, m)
+        csr, csr_S = decode.decode_csr(decode.pack_csr(np.stack(S0s), rle, m,
+                                                       device))
+        lo = 0
+        for k, n in enumerate(rows):
+            want = decode.decode_block_reference(S0[k], lens[lo: lo + n],
+                                                 bits[lo: lo + n], m)
+            same(f"batch m={m} scan {k}", (got[lo: lo + n], got_S[k]), want)
+            same(f"batch m={m} scan {k} RLE bytes",
+                 (csr[lo: lo + n], csr_S[k]), want)
+            lo += n
+        log(f"[decode] one launch of {len(rows)} scans of {rows} rows at "
+            f"m={m} (padded to {lens.shape[1]} runs, and as RLE bytes): each "
+            "equal to its plain decode: OK")
+    path = str(work / "blocks-100x1025.pbf")
+    codes = testing.pbwt_codes(100, 1025, SEED)
+    testing.write_pbf(path, codes, 5)
+    for max_rows in (None, 70):
+        got = decode.decode_pbf_on_device(path, max_rows, device)
+        if not (np.array_equal(got, codes[:max_rows]) and np.array_equal(
+                got, decode.decode_pbf_on_device(path, max_rows, "cpu"))):
+            raise AssertionError(f"decode_pbf_on_device max_rows={max_rows}")
+    log(f"[decode] decode_pbf_on_device on 100 x 1025 (4 blocks; whole, and "
+        f"cut at 70 rows mid-block) equal to the codes and to the CPU: OK; "
+        f"edge checks {time.perf_counter() - t0:.1f} s")
+
+    # the cohort's PBF: the host walk and the RLE-byte batch of every scan
+    pbf = prefix + ".pbf"
+    t0 = time.perf_counter()
+    blocks = list(decode.read_blocks(pbf))
+    t1 = time.perf_counter()
+    m = blocks[0].S.shape[1]
+    rle = [r for b in blocks for r in b.rle]
+    batch = decode.pack_csr(np.concatenate([b.S for b in blocks]), rle, m,
+                            device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_scans, n_rows = len(rle), batch.n_rows
+    runs = [np.array([len(x) for x in r], np.int64) for r in rle]
+    max_runs = int(max(r.max() for r in runs))
+    csr_bytes = batch.rle.numel() + 8 * batch.run_off.numel()
+    pad_block = sum(8 * r.size * int(r.max()) for r in runs)
+    log(f"[decode] cohort {pbf}: {len(blocks)} blocks x 2 planes = {n_scans} "
+        f"scans against {SMS} SMs, {n_rows} rows at m={m}; runs: max "
+        f"{max_runs} a row, mean {sum(int(r.sum()) for r in runs) / n_rows:.1f}"
+        f"; RLE bytes + offsets {csr_bytes / 1e6:.1f} MB, padded lens/bits "
+        f"{pad_block / 1e9:.2f} GB at each block's max_runs, "
+        f"{8 * n_rows * max_runs / 1e9:.2f} GB at the batch's; host walk "
+        f"{t1 - t0:.2f} s, pack and copy {t2 - t1:.2f} s")
+
+    # the path: every block through iter_block_codes, held to the resident
+    # planes and the next checkpoint; decode_pbf_on_device against the host
+    ts = TileStore.open_or_build(prefix)
+    p0 = counts.planes_to_torch(ts.plane0, device)
+    p1 = counts.planes_to_torch(ts.plane1, device)
+    decode.LAUNCHES["pbwt_decode"] = 0
+    t0 = time.perf_counter()
+    prev, seen, checked = None, 0, 0
+    for blk in decode.iter_block_codes(pbf, device=device):
+        n = blk.codes.shape[0]
+        for lo in range(0, n, 2048):
+            hi = min(n, lo + 2048)
+            want = counts.decode_codes(p0[blk.row0 + lo: blk.row0 + hi],
+                                       p1[blk.row0 + lo: blk.row0 + hi])[:, :m]
+            if not torch.equal(blk.codes[lo:hi], want):
+                raise AssertionError(f"decoded rows {blk.row0 + lo}.. != the "
+                                     "resident planes' codes")
+        if prev is not None:
+            if not np.array_equal(prev.S_final.cpu().numpy(), blk.S0):
+                raise AssertionError(f"final S of the block before row "
+                                     f"{blk.row0} != its checkpoint")
+            checked += 1
+        prev, seen = blk, seen + n
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    del prev, blk
+    if seen != ts.n_rows:
+        raise AssertionError(f"decoded {seen} rows of {ts.n_rows}")
+    t0 = time.perf_counter()
+    got = decode.decode_pbf_on_device(pbf, DECODE_HOST_ROWS, device)
+    t_host = time.perf_counter() - t0
+    launches = decode.LAUNCHES["pbwt_decode"]
+    b0 = np.unpackbits(np.asarray(ts.plane0[:DECODE_HOST_ROWS]).view(np.uint8),
+                       axis=1, bitorder="little")[:, :m]
+    b1 = np.unpackbits(np.asarray(ts.plane1[:DECODE_HOST_ROWS]).view(np.uint8),
+                       axis=1, bitorder="little")[:, :m]
+    if not np.array_equal(got, (b1 << 1) | b0):
+        raise AssertionError("decode_pbf_on_device != the host's codes")
+    del got, b0, b1, p0, p1
+    log(f"[decode] iter_block_codes: {seen} rows, every block equal to the "
+        f"resident planes' codes, {checked} final S equal to the next "
+        f"checkpoint, {t_iter:.2f} s (walk, pack, decode, checks); "
+        f"decode_pbf_on_device(max_rows={DECODE_HOST_ROWS}) equal to the "
+        f"host's codes, {t_host:.2f} s; kernel D launches {launches}")
+    if launches < 1:
+        raise AssertionError("kernel D did not run on its path")
+
+    # times on the whole cohort, all scans in one launch
+    torch.cuda.empty_cache()
+    d_ms = time_ms(lambda: decode.decode_csr(batch), device, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = decode.decode_csr_reference(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same("the whole cohort", decode.decode_csr(batch), want)
+    del want
+    S, rle = edge_block(64, 64_976, SEED + 64_976 + 64)
+    lens, bits = decode.pack_block(rle[0], 64_976, device)
+    S0 = torch.from_numpy(S[0]).to(device)
+    row_ms = time_ms(lambda: decode.decode_block_reference(S0, lens, bits,
+                                                           64_976), device, 3) / 64
+    bound = decode_bound_ms(n_scans, n_rows, m, csr_bytes)
+    log(f"[timing] pbwt_decode, the cohort ({n_scans} scans, {n_rows} rows at "
+        f"m={m}) in one launch: D {d_ms:.3f} ms ({n_rows / d_ms * 1e3:.0f} "
+        f"rows/s, {n_rows * m / d_ms / 1e6:.1f} GB/s of output) | bound "
+        f"{bound:.3f} ms by bytes, share {bound / d_ms:.4f} | plain "
+        f"{plain_ms:.1f} ms (host clock, one run), "
+        f"{row_ms:.3f} ms a row at m=64976 | {card}")
+    del batch
+    torch.cuda.empty_cache()
+    log(f"[timing] pbwt_decode, {scatter_cost(torch, device, m, 8192, n_scans)}"
+        f" | {card}")
+    return {"launches": launches, "max_abs_err": 0,
+            "times": (d_ms, plain_ms, bound, "bytes")}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1227,17 +1475,20 @@ def main(argv=None) -> int:
     log(f"[paths] count_codes launches: view {view_launches}, "
         f"server {server_launches}, api {more['api']}, entry {more['entry']}, "
         f"mesh {mesh_launches}")
+    dec = decode_path(torch, device, prefix)
+    launches["pbwt_decode"] = dec["launches"]
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
         log(f"[main] {pkg} imported: no")
 
-    # A at 1 group on the tile, B and C at their phase-7 shapes; no single
-    # PyTorch call computes a masked popcount (torch has no popcount op),
-    # so there is no library time
-    times = {"count_codes": timing["by_shape"]["tile", 1], **rn["times"]}
+    # A at 1 group on the tile, B and C at their phase-7 shapes, D on the
+    # whole cohort; no single PyTorch call computes a masked popcount (torch
+    # has no popcount op) or a PBWT decode, so there is no library time
+    times = {"count_codes": timing["by_shape"]["tile", 1], **rn["times"],
+             "pbwt_decode": dec["times"]}
     errs = {"count_codes": max(err3, timing["max_abs_err"]),
-            **rn["max_abs_err"]}
+            **rn["max_abs_err"], "pbwt_decode": dec["max_abs_err"]}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],

@@ -456,3 +456,120 @@ def test_two_ranks_on_one_card(cuda, tmp_path, monkeypatch):
     for res in outs:
         assert res["out"] == buf.getvalue() and res["out"].count("\n") > 100
         assert res["launches"] == 1
+
+
+# kernel D's edge shapes: haplotypes (1 run a row; words of 32 and a ragged
+# last word; rows of more runs than the block's 1,024 threads at HRC width)
+# and rows per block (none, one, ragged)
+D_M = [1, 31, 33, 1025, 64_976]
+D_ROWS = [0, 1, 17, 64]
+
+
+def _d_block(tmp_path, rows, m, seed):
+    """Block 0 of a PBF of ``rows`` rows from numpy-seeded codes (one
+    checkpoint): its S record (2, m) and each plane's RLE rows."""
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.ops import decode
+    path = str(tmp_path / f"d{rows}x{m}.pbf")
+    testing.write_pbf(path, testing.pbwt_codes(max(rows, 1), m, seed), 8)
+    blk = next(decode.read_blocks(path))
+    return blk.S, [r[:rows] for r in blk.rle]
+
+
+@pytest.mark.parametrize("rows", D_ROWS)
+@pytest.mark.parametrize("m", D_M)
+def test_pbwt_decode_matches_plain(cuda, tmp_path, m, rows):
+    """Kernel D on the padded runs and on the RLE bytes, against the plain
+    version on the card: equal rows and final S, one launch each."""
+    from bgt_tpu_torch.ops import decode
+    S, rle = _d_block(tmp_path, rows, m, seed=m + rows)
+    for gi in range(2):
+        S0 = torch.from_numpy(S[gi]).to(cuda)
+        lens, bits = decode.pack_block(rle[gi], m, device=cuda)
+        before = decode.LAUNCHES["pbwt_decode"]
+        got, got_S = decode.decode_block(S0, lens, bits, m)
+        assert decode.LAUNCHES["pbwt_decode"] == before + 1
+        want, want_S = decode.decode_block_reference(S0, lens, bits, m)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, m) and torch.equal(got, want)
+        assert torch.equal(got_S, want_S)
+        batch = decode.pack_csr(S[gi:gi + 1], [rle[gi]], m, cuda)
+        got, got_S = decode.decode_csr(batch)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_S[0], want_S)
+
+
+def test_pbwt_decode_ragged_batch_one_launch(cuda, tmp_path):
+    """Scans of 0, 1, 17 and 64 rows and both planes in one launch, each
+    equal to its own plain decode."""
+    from bgt_tpu_torch.ops import decode
+    m = 1025
+    S0s, rows, rle = [], [], []
+    for i, n in enumerate([17, 0, 64, 1]):
+        S, r = _d_block(tmp_path, n, m, seed=i)
+        for gi in range(2):
+            S0s.append(S[gi])
+            rows.append(n)
+            rle.append(r[gi])
+    # every scan's rows padded to the batch's longest row
+    lens, bits = decode.pack_block([x for r in rle for x in r], m, device=cuda)
+    S0 = torch.from_numpy(np.stack(S0s)).to(cuda)
+    before = decode.LAUNCHES["pbwt_decode"]
+    got, got_S = decode.decode_blocks(S0, lens, bits, rows, m)
+    csr, csr_S = decode.decode_csr(decode.pack_csr(np.stack(S0s), rle, m, cuda))
+    assert decode.LAUNCHES["pbwt_decode"] == before + 2
+    lo = 0
+    for k, n in enumerate(rows):
+        want, want_S = decode.decode_block_reference(
+            S0[k], lens[lo: lo + n], bits[lo: lo + n], m)
+        assert torch.equal(got[lo: lo + n], want)
+        assert torch.equal(csr[lo: lo + n], want)
+        assert torch.equal(got_S[k], want_S) and torch.equal(csr_S[k], want_S)
+        lo += n
+
+
+def test_decode_pbf_on_device_card_equals_cpu(cuda, tmp_path):
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.ops import decode
+    path = str(tmp_path / "f.pbf")
+    codes = testing.pbwt_codes(100, 1025, seed=5)
+    testing.write_pbf(path, codes, 5)
+    for max_rows in (None, 70, 1):
+        got = decode.decode_pbf_on_device(path, max_rows)  # default: cuda
+        np.testing.assert_array_equal(got, codes[:max_rows])
+        np.testing.assert_array_equal(
+            got, decode.decode_pbf_on_device(path, max_rows, device="cpu"))
+
+
+def test_pbwt_decode_rejects_bad_inputs(cuda):
+    from bgt_tpu_torch.ops import decode
+    S0 = torch.arange(64, dtype=torch.int32, device=cuda)
+    lens = torch.full((3, 2), 32, dtype=torch.int32, device=cuda)
+    bits = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode.decode_block(S0, lens.t().contiguous().t(), bits, 64)
+    with pytest.raises(TypeError, match="int32"):
+        decode.decode_block(S0, lens.to(torch.int64), bits, 64)
+    with pytest.raises(ValueError, match="permutation"):
+        decode.decode_block(torch.zeros_like(S0), lens, bits, 64)
+    with pytest.raises(ValueError, match="exceeds"):
+        m = decode.MAX_M + 1
+        decode.decode_block(torch.arange(m, dtype=torch.int32, device=cuda),
+                            lens, bits, m)
+
+
+def test_pbwt_decode_raises_without_its_library(cuda, monkeypatch):
+    """A CUDA tensor goes to kernel D or raises: no fallback to the plain
+    version when the kernel library cannot load."""
+    from bgt_tpu_torch.ops import _kernels, decode
+
+    def broken():
+        raise OSError("no kernel library")
+
+    monkeypatch.setattr(_kernels, "library", broken)
+    S0 = torch.arange(64, dtype=torch.int32, device=cuda)
+    lens = torch.full((3, 2), 32, dtype=torch.int32, device=cuda)
+    before = decode.LAUNCHES["pbwt_decode"]
+    with pytest.raises(OSError, match="no kernel library"):
+        decode.decode_block(S0, lens, torch.zeros_like(lens), 64)
+    assert decode.LAUNCHES["pbwt_decode"] == before

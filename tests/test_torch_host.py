@@ -4,8 +4,9 @@ and its copies write and print the same bytes as bgt_tpu's.
 - Every ``.py`` of the package and ``chip_smoke.py`` is parsed with ``ast``:
   no ``import`` names ``bgt_tpu`` (other than ``bgt_tpu_torch``) or ``jax``.
 - A fresh interpreter imports every module of the package (the mesh's
-  ``parallel/mesh.py``, ``parallel/distributed.py`` and ``core/xp_torch.py``
-  among them) and finds neither ``bgt_tpu`` nor ``jax`` in ``sys.modules``.
+  ``parallel/mesh.py``, ``parallel/distributed.py`` and ``core/xp_torch.py``,
+  the PBWT scan's ``ops/decode.py`` and the ``misc/`` converters among them)
+  and finds neither ``bgt_tpu`` nor ``jax`` in ``sys.modules``.
 - ``bgt import`` of one VCF through each package: every file of the two
   databases is the same bytes.
 - The subcommands that never touch a device (``kexpr``, ``fmf``,
@@ -62,9 +63,11 @@ mods = [m.name for m in pkgutil.walk_packages(bgt_tpu_torch.__path__,
                                               "bgt_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-mesh_mods = {"bgt_tpu_torch.parallel.mesh", "bgt_tpu_torch.parallel.distributed",
-             "bgt_tpu_torch.core.xp_torch"}
-assert mesh_mods <= set(mods), sorted(mesh_mods - set(mods))
+named = {"bgt_tpu_torch.parallel.mesh", "bgt_tpu_torch.parallel.distributed",
+         "bgt_tpu_torch.core.xp_torch", "bgt_tpu_torch.ops.decode",
+         "bgt_tpu_torch.misc.pop2region", "bgt_tpu_torch.misc.sgdp2fmf",
+         "bgt_tpu_torch.misc.vep2sql"}
+assert named <= set(mods), sorted(named - set(mods))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("bgt_tpu", "jax", "jaxlib"))
 assert not foreign, foreign
@@ -78,7 +81,7 @@ def test_every_module_imports_alone():
                          capture_output=True, text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED" in res.stdout
-    assert int(res.stdout.split()[-1]) >= 33
+    assert int(res.stdout.split()[-1]) >= 45
 
 
 @pytest.fixture(scope="module")
