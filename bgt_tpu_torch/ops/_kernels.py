@@ -108,8 +108,10 @@ def library() -> ctypes.CDLL:
                 vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, vp]
             lib.bgt_count_codes_narrow.restype = ctypes.c_int
-            lib.bgt_pbwt_decode.argtypes = [vp] * 9 + [ctypes.c_int,
-                                                       ctypes.c_int, vp]
+            lib.bgt_pbwt_decode.argtypes = [vp] * 8 + [ctypes.c_int] * 3 + [vp]
             lib.bgt_pbwt_decode.restype = ctypes.c_int
+            lib.bgt_pbwt_decode_plan.argtypes = [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.bgt_pbwt_decode_plan.restype = ctypes.c_int
             _lib[0] = lib
         return _lib[0]

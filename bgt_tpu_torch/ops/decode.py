@@ -12,10 +12,14 @@ pbwt.c:69-170).  Per row:
 
 Checkpoint blocks (every 2^shift rows) and bit planes are independent
 scans; within one the recurrence is sequential.  On a CUDA tensor the scans
-run in ``csrc/pbwt_decode.cu`` (kernel D): one launch decodes every scan of
-a batch, one block per scan looping over its rows.  On a CPU tensor they run
-in the plain PyTorch version beside it (``decode_block_reference``,
-``decode_csr_reference``): a Python loop over rows, each step in torch ops
+run in ``csrc/pbwt_decode.cu`` (kernel D), in the inverse form: it carries
+each haplotype's rank P = S^-1, so a row is a gather ``a[h] = y[P[h]]`` and
+each haplotype's next rank is computed from its own, and the haplotypes of
+a scan split into slices, one block each, that never talk (``plan`` says
+how many: enough to fill the card).  One launch decodes every scan of a
+batch.  On a CPU tensor the scans run in the plain PyTorch version beside
+it (``decode_block_reference``, ``decode_csr_reference``), the S-form
+recurrence of ``bgt_tpu``: a Python loop over rows, each step in torch ops
 on all the scans that still have a row.
 
 Runs reach the kernel in one of two forms: the padded int32 (rows, max_runs)
@@ -34,6 +38,7 @@ on the device, and it is the oracle of kernel D.
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import threading
 from dataclasses import dataclass
@@ -48,9 +53,12 @@ from ..formats.pbf import PbfReader
 LAUNCHES = {"pbwt_decode": 0}
 _LAUNCH_LOCK = threading.Lock()
 
-# the kernel keeps two (m,)-bit arrays of 32-bit words per block in shared
-# memory, up to the H100's opt-in 227 KB less its static scratch
-MAX_M = (227 * 1024 - 1024) // 8 * 32
+# a block of the kernel holds in shared memory the row's y, the count of
+# ones before each of its 32-bit words and the row's transition bits (12
+# bytes per 32 haplotypes) beside its slice of ranks (at least 16 of 32
+# bits): all within the H100's opt-in 227 KB less 1 KB kept for its static
+# scratch
+MAX_M = (227 * 1024 - 1024 - 16 * 4) // 12 * 32
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +271,56 @@ def _check_kernel_inputs(S0s: torch.Tensor, m: int, **tensors) -> None:
         raise ValueError("S0 is not a permutation of 0..m-1")
 
 
-def _launch(S0s, rle, lens, bits, run_off, rows_per_scan, m):
+class DecodePlan(NamedTuple):
+    """Kernel D's launch for a batch: each scan split over
+    ``blocks_per_scan`` blocks of ``threads`` threads, a block owning
+    ``slice`` haplotypes (the last block of a scan the rest)."""
+    blocks_per_scan: int
+    slice: int
+    threads: int
+    smem: int                  # dynamic shared memory of a block, bytes
+    min_blocks_per_scan: int   # the least whose slice fits in shared memory
+    max_blocks_per_scan: int   # slices of 16 haplotypes
+    blocks_per_sm: int         # what the occupancy API allows at ``smem``
+
+
+_PLAN_FIELDS = len(DecodePlan._fields)
+_CUDA_INVALID_VALUE = 1
+
+
+def plan(m: int, scans: int, blocks_per_scan: int = 0, rle: bool = True,
+         device=None) -> DecodePlan:
+    """The launch kernel D makes for ``scans`` scans at ``m`` haplotypes
+    from RLE bytes (``rle``) or padded runs, on CUDA ``device`` (default
+    the current one).  ``blocks_per_scan`` 0 lets the kernel choose: the
+    most blocks the card's SMs hold at once, or the least that fit when the
+    scans alone fill it.  Raises ValueError for a split outside
+    [min_blocks_per_scan, max_blocks_per_scan] or an m past ``MAX_M``."""
+    from . import _kernels
+    if m < 1 or scans < 1:
+        raise ValueError(f"no launch for m = {m}, scans = {scans}")
+    if m > MAX_M:
+        raise ValueError(f"m = {m} exceeds the kernel's {MAX_M} haplotypes")
+    out = (ctypes.c_int * _PLAN_FIELDS)()
+    device = torch.device("cuda" if device is None else device)
+    with torch.cuda.device(device):
+        err = _kernels.library().bgt_pbwt_decode_plan(
+            scans, m, _blocks_per_scan(blocks_per_scan), int(rle), out)
+    if err == _CUDA_INVALID_VALUE and blocks_per_scan:
+        raise ValueError(f"blocks_per_scan = {blocks_per_scan} at m = {m}: "
+                         f"the kernel takes {out[4]} to {out[5]}")
+    if err != 0:
+        raise RuntimeError(f"pbwt_decode plan failed: CUDA error {err}")
+    return DecodePlan(*out)
+
+
+def _blocks_per_scan(value) -> int:
+    if isinstance(value, bool) or not isinstance(value, int) or value < 0:
+        raise ValueError(f"blocks_per_scan must be an int >= 0, got {value!r}")
+    return value
+
+
+def _launch(S0s, rle, lens, bits, run_off, rows_per_scan, m, blocks_per_scan):
     """Kernel D on the current stream (no sync): ((rows, m) uint8,
     (scans, m) int32)."""
     from . import _kernels
@@ -274,7 +331,7 @@ def _launch(S0s, rle, lens, bits, run_off, rows_per_scan, m):
     S_final = torch.empty((n, m), dtype=torch.int32, device=dev)
     if n == 0 or m == 0:
         return out, S_final
-    S_buf = torch.empty((n, 2, m), dtype=torch.int32, device=dev)
+    split = plan(m, n, blocks_per_scan, rle is not None, dev).blocks_per_scan
     row0_d = torch.from_numpy(row0).to(dev)
 
     def ptr(t):
@@ -283,8 +340,8 @@ def _launch(S0s, rle, lens, bits, run_off, rows_per_scan, m):
     with torch.cuda.device(dev):
         err = _kernels.library().bgt_pbwt_decode(
             S0s.data_ptr(), ptr(rle), ptr(lens), ptr(bits), run_off.data_ptr(),
-            row0_d.data_ptr(), out.data_ptr(), S_buf.data_ptr(),
-            S_final.data_ptr(), n, m, torch.cuda.current_stream().cuda_stream)
+            row0_d.data_ptr(), out.data_ptr(), S_final.data_ptr(), n, m, split,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pbwt_decode kernel launch failed: CUDA error {err}")
     # the ctypes call releases the GIL, so callers in threads reach this
@@ -303,7 +360,7 @@ def _rows_per_scan(rows_per_scan, n_scans: int, n_rows: int) -> list[int]:
 
 
 def decode_blocks(S0s: torch.Tensor, lens: torch.Tensor, bits: torch.Tensor,
-                  rows_per_scan, m: int):
+                  rows_per_scan, m: int, *, blocks_per_scan: int = 0):
     """Decode many independent scans (checkpoint blocks of any planes) at
     once.
 
@@ -312,8 +369,11 @@ def decode_blocks(S0s: torch.Tensor, lens: torch.Tensor, bits: torch.Tensor,
     turn; scan k owns the next rows_per_scan[k] of them.
     Returns ((rows, m) uint8 in the same row order, (scans, m) int32 final
     S of each scan; S0 for a scan of no rows).  A CUDA tensor goes to kernel
-    D, all scans in one launch; a CPU tensor to the plain version."""
+    D, all scans in one launch, each over ``blocks_per_scan`` blocks (0:
+    ``plan``'s choice); a CPU tensor to the plain version, which does not
+    split."""
     _check_int32(S0s=S0s, lens=lens, bits=bits)
+    _blocks_per_scan(blocks_per_scan)
     if lens.shape != bits.shape or S0s.shape[1] != m:
         raise ValueError(f"shape mismatch: S0s {tuple(S0s.shape)}, lens "
                          f"{tuple(lens.shape)}, bits {tuple(bits.shape)}, m={m}")
@@ -322,7 +382,8 @@ def decode_blocks(S0s: torch.Tensor, lens: torch.Tensor, bits: torch.Tensor,
         _check_kernel_inputs(S0s, m, lens=lens, bits=bits)
         run_off = torch.arange(lens.shape[0] + 1, dtype=torch.int64,
                                device=S0s.device) * lens.shape[1]
-        return _launch(S0s, None, lens, bits, run_off, rows, m)
+        return _launch(S0s, None, lens, bits, run_off, rows, m,
+                       blocks_per_scan)
     if S0s.device.type == "cpu":
         return _scan_reference(S0s, rows, m, _padded_runs(lens, bits))
     raise ValueError(f"no decode kernel for device {S0s.device}")
@@ -343,12 +404,14 @@ def decode_block(S0: torch.Tensor, lens: torch.Tensor, bits: torch.Tensor,
     return out, S[0]
 
 
-def decode_csr(batch: CsrBatch):
+def decode_csr(batch: CsrBatch, *, blocks_per_scan: int = 0):
     """Decode every scan of ``batch``: ((rows, m) uint8, (scans, m) int32
     final S).  On a CUDA device kernel D reads the RLE bytes itself, all
-    scans in one launch; on the CPU the plain version runs."""
+    scans in one launch, each over ``blocks_per_scan`` blocks (0: ``plan``'s
+    choice); on the CPU the plain version runs."""
     S0s, m = batch.S0s, batch.m
     _check_int32(S0s=S0s)
+    _blocks_per_scan(blocks_per_scan)
     if S0s.shape[1] != m or batch.rle.dtype != torch.uint8 \
             or batch.run_off.dtype != torch.int64 \
             or batch.run_off.shape != (batch.n_rows + 1,) \
@@ -359,7 +422,7 @@ def decode_csr(batch: CsrBatch):
     if S0s.device.type == "cuda":
         _check_kernel_inputs(S0s, m, rle=batch.rle, run_off=batch.run_off)
         return _launch(S0s, batch.rle, None, None, batch.run_off,
-                       batch.rows_per_scan, m)
+                       batch.rows_per_scan, m, blocks_per_scan)
     if S0s.device.type == "cpu":
         return decode_csr_reference(batch)
     raise ValueError(f"no decode kernel for device {S0s.device}")

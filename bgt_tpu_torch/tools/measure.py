@@ -68,7 +68,7 @@ def decode_bound_ms(scans: int, rows: int, m: int, run_bytes: int) -> float:
     bytes and their int64 row offsets): the runs, each scan's S0 and offset
     read once, the (rows, m) uint8 rows and each scan's final S written
     once, at the memory rate.  No operations term: the work is integer logic
-    and scattered byte stores, for which the data sheet gives no peak."""
+    and shared-memory lookups, for which the data sheet gives no peak."""
     nbytes = run_bytes + scans * (8 * m + 8) + rows * m
     return nbytes / HBM_BYTES_PER_S * 1e3
 

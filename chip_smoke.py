@@ -80,14 +80,23 @@ each fatal on failure:
    version on the card, exact equality of the rows and the final S, at 1,
    31, 33, 1,025 and 64,976 haplotypes x 0, 1, 17 and 64 rows (one run a
    row to more runs than the block's threads; all-zero, all-one and sparse
-   rows), on padded runs and on RLE bytes, and in ragged batches of one
-   launch; then the cohort's PBF decoded block by block
-   (``decode.iter_block_codes``: every block equal to the resident planes'
-   codes, every final S equal to the next block's checkpoint) and
-   ``decode_pbf_on_device`` over 16,384 rows against the host; then D's
-   time on the whole cohort (26 scans in one launch) beside its bytes
-   bound and the plain version's time, and the cost of its output
-   scatter (all-zero rows from random and from identity permutations).
+   rows), on padded runs and on RLE bytes, in ragged batches of one launch,
+   with each scan forced over 1, 2, 7 and the most blocks at 1,025 and
+   64,976 haplotypes, and in a batch of more scans than SMs at 5,008; then
+   the cohort's PBF decoded block by block (``decode.iter_block_codes``:
+   every block equal to the resident planes' codes, every final S equal to
+   the next block's checkpoint) and ``decode_pbf_on_device`` over 16,384
+   rows against the host; then D's time on the whole cohort (26 scans in
+   one launch) at its own split and at 1, 2 and 10 blocks a scan, and at
+   256- and 512-thread blocks (the same source built with
+   ``-DBGT_PBWT_THREADS``), each beside its blocks, the SMs they cover, its
+   bytes bound and share, in turns, with the plain version's time; each
+   ``--baseline OLD.cu`` that exports ``bgt_pbwt_decode`` (another revision
+   of D, with this signature or the S-form one's, which took an S scratch
+   buffer and one block a scan) is
+   held equal to D on the cohort and timed in the same turns; last, the
+   time of all-zero rows from random against identity permutations (the
+   output scatter's cost under the S form, which the inverse form removed).
 
 The line before the last is a JSON object with each kernel's launches on its
 path (kernel A's: phases 5-6 and 11; D's: phase 12), its largest difference from the plain
@@ -185,18 +194,20 @@ def check_kernel(torch, counts, device) -> int:
     return worst
 
 
-def build_baseline(src: Path) -> tuple[str, ctypes.CDLL]:
-    """``src``, another revision of kernel A or of kernel C, built with the
-    kernel library's nvcc flags into its build directory and loaded.
-    Returns the kernel it exports with the C signature of its source in
-    ``csrc/`` ("count_codes" for ``bgt_count_codes``, "count_codes_narrow"
-    for ``bgt_count_codes_narrow``) and the library."""
+def build_baseline(src: Path, defines=()) -> tuple[str, ctypes.CDLL]:
+    """``src``, another revision of kernel A, C or D, built with the kernel
+    library's nvcc flags (and ``-D`` each of ``defines``) into its build
+    directory and loaded.  Returns the kernel it exports ("count_codes" for
+    ``bgt_count_codes``, "count_codes_narrow" for ``bgt_count_codes_narrow``,
+    both with the C signature of their sources in ``csrc/``, "pbwt_decode"
+    for ``bgt_pbwt_decode``; see run_decode) and the library."""
     from bgt_tpu_torch.ops import _kernels
-    h = hashlib.sha256(" ".join(_kernels.NVCC_FLAGS).encode() + src.read_bytes())
+    flags = [*_kernels.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    h = hashlib.sha256(" ".join(flags).encode() + src.read_bytes())
     so = _kernels.BUILD_DIR / f"libbaseline-{h.hexdigest()[:16]}.so"
     if not so.exists():
         _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        res = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+        res = subprocess.run([_kernels._nvcc(), *flags, "-shared",
                               "-o", str(so), str(src)],
                              capture_output=True, text=True)
         if res.returncode != 0:
@@ -215,8 +226,59 @@ def build_baseline(src: Path) -> tuple[str, ctypes.CDLL]:
             ctypes.c_int, vp]
         lib.bgt_count_codes_narrow.restype = ctypes.c_int
         return "count_codes_narrow", lib
-    raise RuntimeError(f"{src} exports neither bgt_count_codes nor "
-                       "bgt_count_codes_narrow")
+    if hasattr(lib, "bgt_pbwt_decode"):
+        # with a plan entry: this revision's signature; without: the S
+        # form's, which took an (scans, 2, m) int32 S scratch buffer and ran
+        # one block a scan
+        plan = hasattr(lib, "bgt_pbwt_decode_plan")
+        lib.bgt_pbwt_decode.argtypes = (
+            [vp] * 8 + [ctypes.c_int] * 3 + [vp] if plan
+            else [vp] * 9 + [ctypes.c_int] * 2 + [vp])
+        lib.bgt_pbwt_decode.restype = ctypes.c_int
+        if plan:
+            lib.bgt_pbwt_decode_plan.argtypes = [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.bgt_pbwt_decode_plan.restype = ctypes.c_int
+        return "pbwt_decode", lib
+    raise RuntimeError(f"{src} exports none of bgt_count_codes, "
+                       "bgt_count_codes_narrow, bgt_pbwt_decode")
+
+
+def run_decode(torch, lib, batch, blocks_per_scan: int = 0):
+    """Launch ``lib``'s kernel D (see build_baseline) on a CsrBatch on the
+    current stream; returns its ((rows, m) uint8, (scans, m) int32)."""
+    m, n, dev = batch.m, batch.S0s.shape[0], batch.S0s.device
+    row0 = np.zeros(n + 1, np.int64)
+    np.cumsum(batch.rows_per_scan, out=row0[1:])
+    out = torch.empty((int(row0[-1]), m), dtype=torch.uint8, device=dev)
+    S_final = torch.empty((n, m), dtype=torch.int32, device=dev)
+    row0_d = torch.from_numpy(row0).to(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [batch.S0s.data_ptr(), batch.rle.data_ptr(), None, None,
+            batch.run_off.data_ptr(), row0_d.data_ptr(), out.data_ptr()]
+    if hasattr(lib, "bgt_pbwt_decode_plan"):
+        err = lib.bgt_pbwt_decode(*ptrs, S_final.data_ptr(), n, m,
+                                  blocks_per_scan, stream)
+    else:
+        S_buf = torch.empty((n, 2, m), dtype=torch.int32, device=dev)
+        err = lib.bgt_pbwt_decode(*ptrs, S_buf.data_ptr(), S_final.data_ptr(),
+                                  n, m, stream)
+    if err != 0:
+        raise RuntimeError(f"baseline decode failed: CUDA error {err}")
+    return out, S_final
+
+
+def decode_plan_of(lib, m: int, scans: int, blocks_per_scan: int = 0):
+    """``lib``'s plan of a launch from RLE bytes (see decode.plan), or None
+    for a revision without one."""
+    from bgt_tpu_torch.ops import decode
+    if not hasattr(lib, "bgt_pbwt_decode_plan"):
+        return None
+    out = (ctypes.c_int * len(decode.DecodePlan._fields))()
+    err = lib.bgt_pbwt_decode_plan(scans, m, blocks_per_scan, 1, out)
+    if err != 0:
+        raise RuntimeError(f"baseline decode plan failed: CUDA error {err}")
+    return decode.DecodePlan(*out)
 
 
 def run_baseline(torch, kind, lib, p0, p1, masks):
@@ -1166,21 +1228,30 @@ def mesh_path(torch, device, prefix: str, ref: dict) -> int:
 
 
 # phase 12's exactness shapes of kernel D: haplotypes (one run a row; a
-# word of 32 and a ragged last word; rows of more runs than the block's
-# 1,024 threads at HRC width) and rows per block
+# word of 32 and a ragged last word; rows of more runs than a block's
+# threads at HRC width) and rows per block
 DECODE_M = (1, 31, 33, 1025, 64_976)
 DECODE_ROWS = (0, 1, 17, 64)
+# forced blocks per scan ("max": slices of 16 haplotypes) at two widths:
+# 1,025 is no multiple of 16 nor of its slices; 64,976 is HRC's
+DECODE_SPLITS = (1, 2, 7, "max")
+DECODE_SPLIT_M = (1025, 64_976)
+DECODE_WIDE_BATCH_M = 5008  # 1000 Genomes: a batch of more scans than SMs
 DECODE_HOST_ROWS = 16_384  # decode_pbf_on_device's check against the host
-SMS = 132
+# the cohort's timed splits beside D's own, and D's block sizes
+DECODE_TIMED_SPLITS = (1, 2, 10)
+DECODE_THREADS = (256, 512, 1024)
 
 
 def scatter_cost(torch, device, m: int, rows: int, scans: int) -> str:
-    """Kernel D's output scatter, measured with the kernel itself: ``scans``
-    scans of ``rows`` all-zero rows at ``m`` haplotypes (one run a row, so
-    every row runs the same instructions and S' = S), once from random
-    permutations (each row's output bytes scattered) and once from the
-    identity (the same stores, coalesced).  Returns the two times and their
-    difference per row as a line of text."""
+    """What the output scatter of kernel D's S form cost, measured with the
+    kernel of this revision: ``scans`` scans of ``rows`` all-zero rows at
+    ``m`` haplotypes (one run a row, so every row runs the same
+    instructions and S' = S), once from random permutations (the S form
+    scattered each row's output bytes) and once from the identity.  In the
+    inverse form both write the same coalesced rows and differ only in where
+    each haplotype's y lookup lands.  Returns the two times and their ratio
+    as a line of text."""
     from bgt_tpu_torch.formats.pbf import rle_encode
     from bgt_tpu_torch.ops import decode
     from bgt_tpu_torch.tools.measure import time_ms
@@ -1191,7 +1262,7 @@ def scatter_cost(torch, device, m: int, rows: int, scans: int) -> str:
     perm = torch.stack([torch.randperm(m, generator=gen, device=device)
                         for _ in range(scans)]).to(torch.int32)
     ms = {}
-    for name, S0s in (("coalesced", ident), ("scattered", perm)):
+    for name, S0s in (("identity", ident), ("random", perm)):
         batch = decode.CsrBatch(
             S0s, torch.from_numpy(np.tile(np.frombuffer(row, np.uint8),
                                           rows * scans)).to(device),
@@ -1203,28 +1274,44 @@ def scatter_cost(torch, device, m: int, rows: int, scans: int) -> str:
             raise AssertionError("all-zero rows did not decode to zeros")
         del out, S
         ms[name] = time_ms(lambda: decode.decode_csr(batch), device, 3)
-    return (f"{scans} scans x {rows} all-zero rows at m={m}: output "
-            f"coalesced (identity S) {ms['coalesced']:.3f} ms, scattered "
-            f"(random S) {ms['scattered']:.3f} ms; the scatter costs "
-            f"{(ms['scattered'] - ms['coalesced']) / rows * 1e3:.2f} of "
-            f"{ms['scattered'] / rows * 1e3:.2f} us a row")
+    ratio = ms["random"] / ms["identity"]
+    return (f"{scans} scans x {rows} all-zero rows at m={m}: identity S "
+            f"{ms['identity']:.3f} ms ({ms['identity'] / rows * 1e3:.2f} us a "
+            f"row), random S {ms['random']:.3f} ms "
+            f"({ms['random'] / rows * 1e3:.2f} us a row), random / identity "
+            f"{ratio:.3f}: " + ("no output scatter left (within 10%)"
+                                if abs(ratio - 1) <= 0.1 else
+                                "random S costs more than 10% over identity"))
 
 
-def decode_path(torch, device, prefix: str) -> dict:
+def decode_variants(src: Path, threads: tuple) -> dict:
+    """Kernel D's source built at each of ``threads`` (block sizes), one
+    nvcc each, all at once: name -> library."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(threads) or 1) as pool:
+        libs = pool.map(lambda t: build_baseline(
+            src, [f"BGT_PBWT_THREADS={t}"])[1], threads)
+        return {f"D {t} threads": lib for t, lib in zip(threads, libs)}
+
+
+def decode_path(torch, device, prefix: str, bases=None) -> dict:
     """Phase 12: kernel D (the PBWT decode scan) against its plain version
-    on the card at the edge shapes, then the cohort's PBF decoded block by
-    block through ``decode.iter_block_codes`` (every block equal to the
-    resident planes' codes, every final S equal to the next checkpoint) and
-    ``decode_pbf_on_device`` against the host, then D's and the plain
-    version's times on the whole cohort in one batch.  Returns D's launches
-    on that path, its largest difference from the plain version and its
+    on the card at the edge shapes and splits, then the cohort's PBF decoded
+    block by block through ``decode.iter_block_codes`` (every block equal to
+    the resident planes' codes, every final S equal to the next checkpoint)
+    and ``decode_pbf_on_device`` against the host, then D's and the plain
+    version's times on the whole cohort in one batch, D at several splits
+    and block sizes and each of ``bases`` (name -> library of another
+    revision of D, from build_baseline) in turns.  Returns D's launches on
+    that path, its largest difference from the plain version and its
     times."""
     from bgt_tpu_torch import testing
-    from bgt_tpu_torch.ops import counts, decode
+    from bgt_tpu_torch.ops import _kernels, counts, decode
     from bgt_tpu_torch.ops.tiles import TileStore
     from bgt_tpu_torch.tools.measure import decode_bound_ms, describe, time_ms
 
     card = ", ".join(str(x) for x in describe(device))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     work = REPO / "build" / "chip_smoke" / "decode"
     work.mkdir(parents=True, exist_ok=True)
 
@@ -1285,6 +1372,44 @@ def decode_path(torch, device, prefix: str) -> dict:
         log(f"[decode] one launch of {len(rows)} scans of {rows} rows at "
             f"m={m} (padded to {lens.shape[1]} runs, and as RLE bytes): each "
             "equal to its plain decode: OK")
+    for m in DECODE_SPLIT_M:
+        S, rle = edge_block(64, m, SEED + 3 * m)
+        S0 = torch.from_numpy(S).to(device)
+        lens, bits = decode.pack_block(rle[0] + rle[1], m, device)
+        want = [decode.decode_block_reference(S0[k], lens[64 * k: 64 * k + 64],
+                                              bits[64 * k: 64 * k + 64], m)
+                for k in range(2)]
+        split_plans = []
+        for split in DECODE_SPLITS:
+            bps = -(-m // 16) if split == "max" else split
+            plan = decode.plan(m, 2, bps, device=device)
+            got, got_S = decode.decode_blocks(S0, lens, bits, [64, 64], m,
+                                              blocks_per_scan=bps)
+            csr, csr_S = decode.decode_csr(decode.pack_csr(S, rle, m, device),
+                                           blocks_per_scan=bps)
+            for k in range(2):
+                sl = slice(64 * k, 64 * k + 64)
+                same(f"m={m} plane {k} over {bps} blocks",
+                     (got[sl], got_S[k]), want[k])
+                same(f"m={m} plane {k} over {bps} blocks, RLE bytes",
+                     (csr[sl], csr_S[k]), want[k])
+            split_plans.append(f"{plan.blocks_per_scan} x {plan.slice}")
+        log(f"[decode] m={m}, 64 rows, both planes in one launch, each scan "
+            f"forced over {', '.join(split_plans)} (blocks x haplotypes), "
+            "padded and RLE bytes: equal to the plain version: OK")
+    m = DECODE_WIDE_BATCH_M
+    S, rle = edge_block(17, m, SEED + m)
+    rows = [[17, 0, 5, 1][k % 4] for k in range(sms + 5)]
+    batch = decode.pack_csr(np.stack([S[k % 2] for k in range(len(rows))]),
+                            [rle[k % 2][:n] for k, n in enumerate(rows)], m,
+                            device)
+    plan = decode.plan(m, len(rows), device=device)
+    same(f"{len(rows)} scans at m={m}", decode.decode_csr(batch),
+         decode.decode_csr_reference(batch))
+    log(f"[decode] {len(rows)} scans (more than the {sms} SMs) at m={m} in "
+        f"one launch, {plan.blocks_per_scan} block a scan: equal to the "
+        "plain version: OK")
+    del batch
     path = str(work / "blocks-100x1025.pbf")
     codes = testing.pbwt_codes(100, 1025, SEED)
     testing.write_pbf(path, codes, 5)
@@ -1314,7 +1439,7 @@ def decode_path(torch, device, prefix: str) -> dict:
     csr_bytes = batch.rle.numel() + 8 * batch.run_off.numel()
     pad_block = sum(8 * r.size * int(r.max()) for r in runs)
     log(f"[decode] cohort {pbf}: {len(blocks)} blocks x 2 planes = {n_scans} "
-        f"scans against {SMS} SMs, {n_rows} rows at m={m}; runs: max "
+        f"scans against {sms} SMs, {n_rows} rows at m={m}; runs: max "
         f"{max_runs} a row, mean {sum(int(r.sum()) for r in runs) / n_rows:.1f}"
         f"; RLE bytes + offsets {csr_bytes / 1e6:.1f} MB, padded lens/bits "
         f"{pad_block / 1e9:.2f} GB at each block's max_runs, "
@@ -1368,9 +1493,8 @@ def decode_path(torch, device, prefix: str) -> dict:
     if launches < 1:
         raise AssertionError("kernel D did not run on its path")
 
-    # times on the whole cohort, all scans in one launch
+    # the plain version on the whole cohort, and D against it
     torch.cuda.empty_cache()
-    d_ms = time_ms(lambda: decode.decode_csr(batch), device, 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = decode.decode_csr_reference(batch)
@@ -1383,13 +1507,50 @@ def decode_path(torch, device, prefix: str) -> dict:
     S0 = torch.from_numpy(S[0]).to(device)
     row_ms = time_ms(lambda: decode.decode_block_reference(S0, lens, bits,
                                                            64_976), device, 3) / 64
+    del S0, lens, bits
+
+    # D's kernel alone on the whole cohort, all scans in one launch: at its
+    # own split and fixed ones, at each block size, and each baseline, held
+    # equal to D and timed in turns (lower of two medians of 3)
+    lib = _kernels.library()
+    own = decode.plan(m, n_scans, device=device)
+    fns = {"D": lambda: run_decode(torch, lib, batch)}
+    plans = {"D": own}
+    for c in DECODE_TIMED_SPLITS:
+        if c != own.blocks_per_scan:
+            fns[f"D C={c}"] = lambda c=c: run_decode(torch, lib, batch, c)
+            plans[f"D C={c}"] = decode.plan(m, n_scans, c, device=device)
+    variants = decode_variants(REPO / KERNELS["pbwt_decode"][0],
+                               tuple(t for t in DECODE_THREADS
+                                     if t != own.threads))
+    for name, other in {**variants, **(bases or {})}.items():
+        fns[name] = lambda other=other: run_decode(torch, other, batch)
+        plans[name] = decode_plan_of(other, m, n_scans)
+    ref = fns["D"]()
+    for name, fn in fns.items():
+        if name != "D":
+            same(f"the whole cohort, {name} against D", fn(), ref)
+    del ref
+    ms = in_turns(fns, list(fns), device, 3)
     bound = decode_bound_ms(n_scans, n_rows, m, csr_bytes)
-    log(f"[timing] pbwt_decode, the cohort ({n_scans} scans, {n_rows} rows at "
-        f"m={m}) in one launch: D {d_ms:.3f} ms ({n_rows / d_ms * 1e3:.0f} "
-        f"rows/s, {n_rows * m / d_ms / 1e6:.1f} GB/s of output) | bound "
-        f"{bound:.3f} ms by bytes, share {bound / d_ms:.4f} | plain "
-        f"{plain_ms:.1f} ms (host clock, one run), "
-        f"{row_ms:.3f} ms a row at m=64976 | {card}")
+    rows_per_scan = max(batch.rows_per_scan)
+    for name, ts in ms.items():
+        t, p = min(ts), plans[name]
+        split = ("one block a scan (the S form)" if p is None else
+                 f"{p.blocks_per_scan} blocks a scan of {p.threads} threads, "
+                 f"slice {p.slice}, {p.smem} B shared, {p.blocks_per_sm} a SM:"
+                 f" {n_scans * p.blocks_per_scan} blocks on "
+                 f"{min(sms, n_scans * p.blocks_per_scan)} of {sms} SMs")
+        log(f"[timing] pbwt_decode {name}: the cohort ({n_scans} scans, "
+            f"{n_rows} rows at m={m}) in one launch, {t:.3f} ms "
+            f"({t / rows_per_scan * 1e3:.2f} us a row of the longest scan, "
+            f"{n_rows * m / t / 1e6:.1f} GB/s of output) | {split} | bound "
+            f"{bound:.3f} ms by bytes, share {bound / t:.4f} | turns "
+            + ", ".join(f"{x:.3f}" for x in ts) + f" ms | {card}")
+    d_ms = min(ms["D"])
+    log(f"[timing] pbwt_decode plain version: {plain_ms:.1f} ms for the "
+        f"cohort (host clock, one run), {row_ms:.3f} ms a row at m=64976 | "
+        f"{card}")
     del batch
     torch.cuda.empty_cache()
     log(f"[timing] pbwt_decode, {scatter_cost(torch, device, m, 8192, n_scans)}"
@@ -1405,9 +1566,11 @@ def main(argv=None) -> int:
                     default=[],
                     help="a source of another revision of kernel A (the C "
                          "entry point bgt_count_codes), timed beside A in "
-                         "phase 4, or of kernel C (bgt_count_codes_narrow), "
-                         "timed beside C in phase 7; may be given more than "
-                         "once")
+                         "phase 4, of kernel C (bgt_count_codes_narrow), "
+                         "timed beside C in phase 7, or of kernel D "
+                         "(bgt_pbwt_decode, with this revision's signature "
+                         "or the S form's), timed beside D in phase 12; may "
+                         "be given more than once")
     ap.add_argument("--rank", action="store_true",
                     help="run as one rank of phase 11 (its environment names "
                          "the group: MASTER_ADDR, MASTER_PORT, RANK, "
@@ -1450,7 +1613,7 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
-    bases = {"count_codes": {}, "count_codes_narrow": {}}
+    bases = {"count_codes": {}, "count_codes_narrow": {}, "pbwt_decode": {}}
     for src in args.baseline:
         kind, lib = build_baseline(src)
         bases[kind][src.stem] = lib
@@ -1475,7 +1638,7 @@ def main(argv=None) -> int:
     log(f"[paths] count_codes launches: view {view_launches}, "
         f"server {server_launches}, api {more['api']}, entry {more['entry']}, "
         f"mesh {mesh_launches}")
-    dec = decode_path(torch, device, prefix)
+    dec = decode_path(torch, device, prefix, bases["pbwt_decode"])
     launches["pbwt_decode"] = dec["launches"]
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):

@@ -528,6 +528,85 @@ def test_pbwt_decode_ragged_batch_one_launch(cuda, tmp_path):
         lo += n
 
 
+# kernel D with each scan split over a forced number of blocks (0: its own
+# plan; "max": ceil(m / 16), slices of 16): 1,025 is no multiple of 16 nor
+# of its slices, 64,976 (HRC) fits whole in one block's 16-bit ranks,
+# 65,536 is the last width of 16-bit ranks and past it they are 32-bit
+D_SPLITS = [(m, c) for m in (1025, 64_976) for c in (1, 2, 7, "max")] + [
+    (65_536, 0), (65_536, 1), (65_537, 0), (70_001, 3)]
+
+
+@pytest.mark.parametrize("m,split", D_SPLITS,
+                         ids=[f"{m}-{c}" for m, c in D_SPLITS])
+def test_pbwt_decode_forced_splits(cuda, tmp_path, m, split):
+    """Both planes of a 64-row block as two scans of one launch, each over
+    ``split`` blocks, on padded runs and on RLE bytes: equal rows and final
+    S to the plain version."""
+    from bgt_tpu_torch.ops import decode
+    S, rle = _d_block(tmp_path, 64, m, seed=m + 3)
+    bps = -(-m // 16) if split == "max" else split
+    p = decode.plan(m, 2, bps, device=cuda)
+    assert p.max_blocks_per_scan == -(-m // 16)
+    assert p.slice % 16 == 0 and (p.blocks_per_scan - 1) * p.slice < m
+    assert m <= p.blocks_per_scan * p.slice
+    assert p.blocks_per_scan == bps or (bps == 0 and p.blocks_per_scan >= 1)
+    S0 = torch.from_numpy(S).to(cuda)
+    lens, bits = decode.pack_block(rle[0] + rle[1], m, device=cuda)
+    before = decode.LAUNCHES["pbwt_decode"]
+    got, got_S = decode.decode_blocks(S0, lens, bits, [64, 64], m,
+                                      blocks_per_scan=bps)
+    csr, csr_S = decode.decode_csr(decode.pack_csr(S, rle, m, cuda),
+                                   blocks_per_scan=bps)
+    assert decode.LAUNCHES["pbwt_decode"] == before + 2
+    for k in range(2):
+        want, want_S = decode.decode_block_reference(
+            S0[k], lens[64 * k: 64 * k + 64], bits[64 * k: 64 * k + 64], m)
+        torch.cuda.synchronize()
+        assert torch.equal(got[64 * k: 64 * k + 64], want)
+        assert torch.equal(csr[64 * k: 64 * k + 64], want)
+        assert torch.equal(got_S[k], want_S) and torch.equal(csr_S[k], want_S)
+
+
+def test_pbwt_decode_more_scans_than_sms(cuda, tmp_path):
+    """A batch of more scans than the card has SMs at the 1000 Genomes
+    width (5,008 haplotypes) takes one block per scan and decodes every
+    scan as the plain version does."""
+    from bgt_tpu_torch.ops import decode
+    m = 5008
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S, rle = _d_block(tmp_path, 17, m, seed=11)
+    rows = [[17, 0, 5, 1][k % 4] for k in range(sms + 5)]
+    batch = decode.pack_csr(np.stack([S[k % 2] for k in range(len(rows))]),
+                            [rle[k % 2][:n] for k, n in enumerate(rows)], m,
+                            cuda)
+    assert decode.plan(m, len(rows), device=cuda).blocks_per_scan == 1
+    got, got_S = decode.decode_csr(batch)
+    want, want_S = decode.decode_csr_reference(batch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_S, want_S)
+
+
+def test_pbwt_decode_plan(cuda):
+    """The default plan fills the card's SMs once at the occupancy it
+    reports; forced splits outside what fits are refused."""
+    from bgt_tpu_torch.ops import decode
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, scans in ((64_976, 26), (64_976, 1), (1025, 3), (70_001, 40)):
+        p = decode.plan(m, scans, device=cuda)
+        assert p.blocks_per_sm >= 1 and p.threads in (256, 512, 1024)
+        assert p.blocks_per_scan == 1 or scans * p.blocks_per_scan <= sms * p.blocks_per_sm
+        assert p.min_blocks_per_scan <= p.blocks_per_scan <= p.max_blocks_per_scan
+    assert decode.plan(64_976, 26, device=cuda).min_blocks_per_scan == 1
+    with pytest.raises(ValueError, match="blocks_per_scan"):
+        decode.plan(1025, 1, 66, device=cuda)  # slices of 16 make 65
+    wide = decode.plan(decode.MAX_M, 1, device=cuda)
+    assert wide.min_blocks_per_scan > 1
+    with pytest.raises(ValueError, match="blocks_per_scan"):
+        decode.plan(decode.MAX_M, 1, 1, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        decode.plan(decode.MAX_M + 1, 1, device=cuda)
+
+
 def test_decode_pbf_on_device_card_equals_cpu(cuda, tmp_path):
     from bgt_tpu_torch import testing
     from bgt_tpu_torch.ops import decode

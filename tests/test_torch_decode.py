@@ -217,6 +217,133 @@ def test_csr_runs_equal_padded_runs(tmp_path):
         lo += len(rle_rows)
 
 
+# ---------------------------------------------------------------------------
+# Kernel D's algorithm, emulated in numpy on the CPU
+# ---------------------------------------------------------------------------
+
+def _row_y(lens, bits, m):
+    """One row's y as every block of kernel D builds it: (y as 32-bit words,
+    the ones before each word, the row's zeros).  A run with a nonzero
+    length, a start in [0, m) and a bit unlike the previous run's flips its
+    start bit; y is the prefix XOR of the flips, inside a word by shifts,
+    across words by the exclusive XOR of the words' parities."""
+    W = (m + 31) // 32
+    starts = np.cumsum(lens) - lens
+    prev = np.concatenate([[0], bits[:-1]])
+    flips = (lens > 0) & (bits != prev) & (starts >= 0) & (starts < m)
+    t = np.zeros(W, np.uint32)
+    np.bitwise_xor.at(t, starts[flips] >> 5,
+                      (1 << (starts[flips] & 31)).astype(np.uint32))
+    x = t.copy()
+    for sh in (1, 2, 4, 8, 16):
+        x ^= x << np.uint32(sh)
+    par = np.bitwise_count(t) & 1
+    x ^= np.where((np.bitwise_xor.accumulate(par) ^ par) == 1,
+                  np.uint32(0xFFFFFFFF), np.uint32(0))
+    if m % 32:
+        x[-1] &= np.uint32((1 << (m % 32)) - 1)
+    ones = np.bitwise_count(x).astype(np.int64)
+    return x.astype(np.int64), np.cumsum(ones) - ones, m - int(ones.sum())
+
+
+def _kernel_d_emulation(S0, runs, m, blocks_per_scan):
+    """Kernel D's inverse-form, sliced algorithm in numpy: the haplotypes
+    cut into slices of L (``blocks_per_scan`` rounded to a multiple of 16,
+    C = ceil(m / L) slices), each carrying its own ranks P = S0^-1 alone
+    through every row (``runs``: each row's (lens, bits) int64 arrays) from
+    that row's y, then writing its part of the final S from P.  Returns
+    ((rows, m) uint8, final S int32, C)."""
+    L = -(-m // blocks_per_scan)
+    L = -(-L // 16) * 16
+    C = -(-m // L)
+    ys = [_row_y(lens, bits, m) for lens, bits in runs]
+    out = np.zeros((len(runs), m), np.uint8)
+    S_final = np.full(m, -1, np.int64)
+    for c in range(C):
+        lo, hi = c * L, min(m, (c + 1) * L)
+        mine = (S0 >= lo) & (S0 < hi)
+        P = np.zeros(hi - lo, np.int64)
+        P[S0[mine] - lo] = np.flatnonzero(mine)
+        for r, (words, ones_before, n0) in enumerate(ys):
+            word, b = words[P >> 5], P & 31
+            y = (word >> b) & 1
+            o = ones_before[P >> 5] + np.bitwise_count(word & ((1 << b) - 1))
+            out[r, lo:hi] = y
+            P = np.where(y == 1, n0 + o, P - o)
+        S_final[P] = np.arange(lo, hi)
+    return out, S_final.astype(np.int32), C
+
+
+def _rle_runs(rle_rows):
+    """Each row's runs as the kernel decodes the RLE bytes (no padding)."""
+    out = []
+    for row in rle_rows:
+        v = np.frombuffer(row, np.uint8).astype(np.int64)
+        t = v >> 1
+        out.append(((t & 15) << (4 * (t >> 4)), v & 1))
+    return out
+
+
+EMU_M = [1, 15, 33, 777, 1025]
+EMU_SPLITS = [1, 3, 7, "max"]  # "max": ceil(m / 16), slices of 16
+
+
+@pytest.fixture(scope="module")
+def emu_block(tmp_path_factory):
+    """m -> (block 0's S record, each plane's RLE rows, each plane's plain
+    and bgt_tpu decode); random rows of every code, then the degenerate and
+    long-run rows of test_degenerate_and_long_runs_keep_s at width m."""
+    tmp = tmp_path_factory.mktemp("emu")
+    cache = {}
+
+    def get(m):
+        if m not in cache:
+            extra = np.zeros((5, m), np.uint8)
+            extra[1] = 3
+            extra[2, : max(1, 4 * m // 9)] = 1
+            extra[3, ::7] = 2
+            extra[4] = 1
+            codes = np.concatenate([testing.pbwt_codes(21, m, seed=m), extra])
+            path = str(tmp / f"e{m}.pbf")
+            testing.write_pbf(path, codes, 8)
+            blk = next(decode.read_blocks(path))
+            wants = []
+            for gi in range(2):
+                lens, bits = decode.pack_block(blk.rle[gi], m, device=CPU)
+                got, S = decode.decode_block_reference(
+                    torch.from_numpy(blk.S[gi]), lens, bits, m)
+                jl, jb = jax_decode.pack_block(blk.rle[gi], m)
+                jw, jS = jax_decode.decode_block(jnp.asarray(blk.S[gi]), jl, jb, m)
+                np.testing.assert_array_equal(got.numpy(), np.asarray(jw))
+                np.testing.assert_array_equal(S.numpy(), np.asarray(jS))
+                np.testing.assert_array_equal(got.numpy(), (codes >> gi) & 1)
+                wants.append((lens.numpy().astype(np.int64),
+                               bits.numpy().astype(np.int64),
+                               got.numpy(), S.numpy()))
+            cache[m] = blk, wants
+        return cache[m]
+    return get
+
+
+@pytest.mark.parametrize("source", ["padded", "bytes"])
+@pytest.mark.parametrize("split", EMU_SPLITS)
+@pytest.mark.parametrize("m", EMU_M)
+def test_kernel_d_algorithm_matches_plain(emu_block, m, split, source):
+    """The inverse form, cut into slices, gives byte for byte the rows and
+    the final S of the plain version (the S-form recurrence) and of
+    bgt_tpu's decode_block on JAX-CPU, on padded runs and on RLE bytes."""
+    blk, wants = emu_block(m)
+    blocks_per_scan = -(-m // 16) if split == "max" else split
+    for gi, (lens, bits, want, want_S) in enumerate(wants):
+        runs = (list(zip(lens, bits)) if source == "padded"
+                else _rle_runs(blk.rle[gi]))
+        got, S, C = _kernel_d_emulation(blk.S[gi].astype(np.int64), runs, m,
+                                        blocks_per_scan)
+        assert C <= blocks_per_scan and (C - 1) * 16 < m
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(S, want_S)
+
+
 def test_decode_rejects_bad_inputs():
     S0 = torch.arange(8, dtype=torch.int32)
     lens = torch.full((2, 1), 8, dtype=torch.int32)
@@ -227,6 +354,10 @@ def test_decode_rejects_bad_inputs():
         decode.decode_block(S0, lens, bits[:, :0], 8)
     with pytest.raises(ValueError, match="rows_per_scan"):
         decode.decode_blocks(S0[None], lens, bits, [1], 8)
+    for bad in (-1, 1.5, True):
+        with pytest.raises(ValueError, match="blocks_per_scan"):
+            decode.decode_blocks(S0[None], lens, bits, [2], 8,
+                                 blocks_per_scan=bad)
 
 
 def test_decode_rejects_one_plane_pbf(tmp_path):
