@@ -341,10 +341,11 @@ def _device_cmd(cmd: str, fn, argv, device) -> int:
     """``view``/``server`` on ``device``; a bad flag prints a message (the
     other subcommands raise ``getopt.GetoptError`` as ``bgt_tpu``'s do).
     Under torchrun (``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``)
-    the process first joins its gloo group, and the query runs on the mesh
-    of every rank's slots."""
+    the process first joins its group, with NCCL between the ranks where
+    each has cards of its own (bare ``cuda`` is then ``cuda:$LOCAL_RANK``),
+    and the query runs on the mesh of every rank's slots."""
     from .parallel import distributed
-    distributed.initialize()
+    distributed.initialize(device=device)
     try:
         return fn(argv, device=device)
     except getopt.GetoptError as e:

@@ -34,8 +34,10 @@ import threading
 import numpy as np
 import torch
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches it.
+# Launches of each CUDA kernel, counted by its wrapper where it launches it,
+# and the same launches by (kernel, card index)
 LAUNCHES = {"count_codes": 0, "count_raw": 0, "count_codes_narrow": 0}
+CARD_LAUNCHES: dict = {}
 _LAUNCH_LOCK = threading.Lock()
 
 # count_codes_narrow's contract, the same on every device: the groups of the
@@ -157,14 +159,16 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
-    _count_launch(kernel)
+    _count_launch(kernel, device.index)
 
 
-def _count_launch(kernel: str) -> None:
+def _count_launch(kernel: str, card: int | None = None) -> None:
     # the ctypes call above releases the GIL, so request threads of the
     # server reach this read-modify-write concurrently
     with _LAUNCH_LOCK:
         LAUNCHES[kernel] += 1
+        key = (kernel, card)
+        CARD_LAUNCHES[key] = CARD_LAUNCHES.get(key, 0) + 1
 
 
 def _count_codes_cuda(p0: torch.Tensor, p1: torch.Tensor, masks: torch.Tensor,

@@ -25,12 +25,16 @@ The collectives:
 - the column ``all_gather``: the slots' columns are concatenated in slot
   order, then ``all_gather`` across ranks in rank order.
 
-Across ranks they run on gloo with host tensors: the counts are small
-(rows x groups x 4 int32) and GT pairs are one byte per sample per
-requested row, NCCL refuses two ranks on one card, and gloo takes no CUDA
-tensor, so each collective tensor is copied to the host first.  The
-collectives of one process run under one lock, so that threads of one rank
-never interleave them.
+In the process, slots on distinct cards meet on the first slot's card by
+peer copies (PyTorch orders both cards' streams around each copy); the
+host never sees them.  Across ranks the mesh takes the transport that
+``distributed.initialize`` chose from the ranks' cards: NCCL on the device
+tensors themselves where every rank is on CUDA and no card belongs to two
+ranks, else gloo on host copies (gloo takes no CUDA tensor, and NCCL
+refuses two ranks on one card).  ``COLLECTIVES`` counts each transport's
+calls, wall ms and bytes.  The cross-rank collectives of one process run
+under one lock, so that threads of one rank never interleave them; every
+rank must still issue them in the same order (one query stream).
 
 JAX compiles each body once per row-span or row-count bucket; PyTorch runs
 eagerly, so the bodies here take the exact span and row list.
@@ -38,6 +42,7 @@ eagerly, so the bodies here take the exact span and row list.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
@@ -53,20 +58,35 @@ ROW_AXIS = "r"  # site-batch data axis
 
 # One lock for every cross-rank collective of this process.
 _COLLECTIVE_LOCK = threading.Lock()
-# Cross-rank collectives made by this process: calls and wall ms of the
-# torch.distributed call itself (the host copies around it not included).
-COLLECTIVES = {"all_reduce": {"calls": 0, "ms": 0.0},
-               "all_gather": {"calls": 0, "ms": 0.0}}
+_STATS_LOCK = threading.Lock()
+# The collectives this process made, by transport ("nccl" and "gloo" across
+# ranks, "peer" between this process's cards) and operation: calls, wall ms
+# and the bytes of the result.  gloo's ms is the torch.distributed call
+# alone (not the host copies around it); nccl's and peer's run from a
+# synchronised start to a synchronised end on the cards involved.
+TRANSPORTS = ("nccl", "gloo", "peer")
+COLLECTIVES = {t: {op: {"calls": 0, "ms": 0.0, "bytes": 0}
+                   for op in ("all_reduce", "all_gather")}
+               for t in TRANSPORTS}
+
+
+def reset_collectives() -> None:
+    with _STATS_LOCK:
+        for ops in COLLECTIVES.values():
+            for stat in ops.values():
+                stat.update(calls=0, ms=0.0, bytes=0)
 
 
 class Mesh:
     """``shape`` positions over ``axis_names`` (row-major), of which this
     process owns ``slots``: positions ``first .. first + len(slots) - 1``.
     ``rank``/``world`` are the process's place in its process group (0/1
-    without one)."""
+    without one); ``transport`` ("nccl" or "gloo") and ``group`` (None: the
+    default group) are what the cross-rank collectives run on."""
 
     def __init__(self, axis_names, sizes, slots, first: int = 0,
-                 rank: int = 0, world: int = 1):
+                 rank: int = 0, world: int = 1, transport: str = "gloo",
+                 group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(n) for n in sizes)))
         self.size = math.prod(self.shape.values())
@@ -74,6 +94,8 @@ class Mesh:
         self.first = first
         self.rank = rank
         self.world = world
+        self.transport = transport
+        self.group = group
         if not self.slots or first + len(self.slots) > self.size:
             raise ValueError(f"{len(self.slots)} slots from position {first} "
                              f"do not fit a mesh of {self.size}")
@@ -84,14 +106,22 @@ class Mesh:
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, slots={[str(d) for d in self.slots]}, "
-                f"first={self.first}, rank={self.rank}/{self.world})")
+                f"first={self.first}, rank={self.rank}/{self.world}, "
+                f"{self.transport})")
+
+
+def _in_group() -> bool:
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
 
 
 def local_slots(device=None) -> list[torch.device]:
     """This process's slots for an entry point's ``device`` (default
-    ``cuda``): ``BGT_TPU_MESH_DEVICES=N`` gives N slots on ``device``;
-    otherwise one per visible CUDA device when ``device`` is CUDA, and one
-    otherwise."""
+    ``cuda``).  ``BGT_TPU_MESH_DEVICES=N`` gives N slots on ``device``.
+    Otherwise a device with an index (``cuda:k``, ``cpu``) is one slot, and
+    bare ``cuda`` is every visible card, except inside a process group where
+    torchrun set ``LOCAL_RANK``: there it is that one card."""
     device = torch.device("cuda" if device is None else device)
     env = os.environ.get("BGT_TPU_MESH_DEVICES")
     if env:
@@ -99,10 +129,16 @@ def local_slots(device=None) -> list[torch.device]:
         if n < 1:
             raise ValueError(f"BGT_TPU_MESH_DEVICES={env}: need at least 1")
         return [device] * n
-    if device.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [device]
+    if device.type != "cuda" or device.index is not None:
+        return [device]
+    n = torch.cuda.device_count()
+    local = os.environ.get("LOCAL_RANK")
+    if local and _in_group():
+        k = int(local)
+        if not 0 <= k < n:
+            raise ValueError(f"LOCAL_RANK={local} but {n} cards are visible")
+        return [torch.device("cuda", k)]
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(devices=None, axis: str = SAMPLE_AXIS) -> Mesh:
@@ -178,33 +214,101 @@ def shard_planes2(mesh: Mesh, plane0: np.ndarray, plane1: np.ndarray,
     return p0, p1, place(mesh, pad_to(masks, masks.shape[0], words), False)
 
 
-def _local_sum(tensors: list) -> torch.Tensor:
-    """Exact elementwise sum of same-shaped tensors, on the first one's
-    device."""
-    out = tensors[0].clone()
-    for t in tensors[1:]:
-        out += t.to(out.device)
+def _sync(devices) -> None:
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.current_stream(d).synchronize()
+
+
+def _record(transport: str, op: str, t0: float, nbytes: int) -> None:
+    ms = (time.perf_counter() - t0) * 1e3
+    with _STATS_LOCK:
+        stat = COLLECTIVES[transport][op]
+        stat["calls"] += 1
+        stat["ms"] += ms
+        stat["bytes"] += nbytes
+
+
+def _peer(op: str, tensors: list, dst: torch.device, fn):
+    """``fn()``, which brings ``tensors`` to ``dst``; counted as a peer
+    collective where some of them lie on another card."""
+    far = {t.device for t in tensors if t.device != dst}
+    if not far or dst.type != "cuda":
+        return fn()
+    cards = {dst, *far}
+    _sync(cards)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(cards)
+    _record("peer", op, t0, out.nbytes)
     return out
 
 
-def _timed(kind: str, fn) -> None:
-    t0 = time.perf_counter()
-    fn()
-    stat = COLLECTIVES[kind]
-    stat["calls"] += 1
-    stat["ms"] += (time.perf_counter() - t0) * 1e3
+def _local_sum(tensors: list) -> torch.Tensor:
+    """Exact elementwise sum of same-shaped tensors, on the first one's
+    device: the others are added in as peer copies."""
+    dst = tensors[0].device
+
+    def run():
+        out = tensors[0].clone()
+        for t in tensors[1:]:
+            out += t.to(dst)
+        return out
+
+    return _peer("all_reduce", tensors, dst, run)
+
+
+def _cat_cols(tensors: list, dst: torch.device) -> torch.Tensor:
+    """``tensors`` concatenated along the columns on ``dst``."""
+    return _peer("all_gather", tensors, dst,
+                 lambda: torch.cat([t.to(dst) for t in tensors], dim=1))
+
+
+def _guard(device: torch.device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _across_ranks(mesh: Mesh, op: str, out: torch.Tensor) -> torch.Tensor:
+    """``op`` ("all_reduce" or "all_gather") of this rank's ``out`` with
+    every other rank's, on the mesh's transport: NCCL on ``out`` itself,
+    gloo on a host copy.  A gather returns (world,) + out.shape, rank 0
+    first."""
+    import torch.distributed as dist
+    out = out.contiguous()
+    if mesh.transport == "nccl":
+        res = (out if op == "all_reduce" else
+               torch.empty((mesh.world, *out.shape), dtype=out.dtype,
+                           device=out.device))
+        with _COLLECTIVE_LOCK, _guard(out.device):
+            _sync([out.device])
+            t0 = time.perf_counter()
+            if op == "all_reduce":
+                dist.all_reduce(res, group=mesh.group)
+            else:
+                dist.all_gather_into_tensor(res, out, group=mesh.group)
+            _sync([out.device])
+            _record("nccl", op, t0, res.nbytes)
+        return res
+    host = out.cpu()
+    parts = ([host] if op == "all_reduce" else
+             [torch.empty_like(host) for _ in range(mesh.world)])
+    with _COLLECTIVE_LOCK:
+        t0 = time.perf_counter()
+        if op == "all_reduce":
+            dist.all_reduce(host, group=mesh.group)
+        else:
+            dist.all_gather(parts, host, group=mesh.group)
+        _record("gloo", op, t0, sum(p.nbytes for p in parts))
+    return (host if op == "all_reduce" else torch.stack(parts)).to(out.device)
 
 
 def psum(mesh: Mesh, local: list) -> torch.Tensor:
     """Sum of the slots' ``local`` results over the whole mesh, on this
     process's first slot."""
-    out = _local_sum(local).to(mesh.slots[0])
+    out = _local_sum(local)
     if mesh.world > 1:
-        import torch.distributed as dist
-        host = out.cpu()
-        with _COLLECTIVE_LOCK:
-            _timed("all_reduce", lambda: dist.all_reduce(host))
-        out = host.to(mesh.slots[0])
+        out = _across_ranks(mesh, "all_reduce", out)
     return out
 
 
@@ -212,14 +316,10 @@ def all_gather_cols(mesh: Mesh, local: list) -> torch.Tensor:
     """The slots' ``local`` (rows, cols_i) blocks concatenated along the
     columns in mesh order (slot order, then rank order), on this process's
     first slot."""
-    out = torch.cat([t.to(mesh.slots[0]) for t in local], dim=1)
+    out = _cat_cols(local, mesh.slots[0])
     if mesh.world > 1:
-        import torch.distributed as dist
-        host = out.cpu().contiguous()
-        parts = [torch.empty_like(host) for _ in range(mesh.world)]
-        with _COLLECTIVE_LOCK:
-            _timed("all_gather", lambda: dist.all_gather(parts, host))
-        out = torch.cat(parts, dim=1).to(mesh.slots[0])
+        parts = _across_ranks(mesh, "all_gather", out)
+        out = parts.permute(1, 0, 2).reshape(out.shape[0], -1)
     return out
 
 
@@ -339,7 +439,7 @@ def sharded_pairs_rows2_fn(mesh: Mesh):
         local = [_pairs(counts_ops.decode_codes(
             _local_sum([x for x, _ in parts]),
             _local_sum([y for _, y in parts]))) for parts in cols]
-        return torch.cat([t.to(mesh.slots[0]) for t in local], dim=1)
+        return _cat_cols(local, mesh.slots[0])
 
     return call
 

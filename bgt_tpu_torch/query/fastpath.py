@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -34,7 +35,7 @@ import torch
 from ..core import kexpr
 from ..formats import bcf as bcflib
 from ..io.bgzf import BgzfReader
-from ..log import device_trace
+from ..log import device_trace, stage
 from ..ops import counts as counts_ops
 from ..ops.tiles import TileStore
 from ..parallel import distributed, mesh as meshlib
@@ -547,11 +548,13 @@ class ShardContext:
     axis.
 
     Built once per process and device when ``device`` gives at least two
-    slots (``parallel.mesh.local_slots``) or a process group of more than
-    one process exists (BGT_TPU_SHARD=0 forces single-device execution).
-    Per database the padded planes are placed across the slots once; each
-    query ships only its small mask tensor and reads back the summed count
-    tensor.
+    slots (``parallel.mesh.local_slots``: bare ``cuda`` is every visible
+    card) or a process group of more than one process exists
+    (BGT_TPU_SHARD=0 forces single-device execution); ``slots`` overrides
+    ``local_slots`` in one process.  Per database the padded planes are
+    placed across the slots once, one card after another (the executor's
+    ``place_s`` keeps the seconds it took); each query ships only its small
+    mask tensor and reads back the summed count tensor.
 
     Multi-process (a ``torch.distributed`` group of world > 1): the mesh
     spans every process's slots; each process places only its own
@@ -560,11 +563,12 @@ class ShardContext:
     every rank, and every rank reads back the same count tensor.
     """
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, slots=None):
         self.multi_process = distributed.world() > 1
         self.mesh = (distributed.global_mesh(device=device)
                      if self.multi_process
-                     else meshlib.make_mesh(meshlib.local_slots(device)))
+                     else meshlib.make_mesh(slots if slots is not None
+                                            else meshlib.local_slots(device)))
         self.n_dev = self.mesh.size
         self.count_range = meshlib.sharded_count_range_fn(self.mesh)
         self.pairs_rows = meshlib.sharded_pairs_rows_fn(self.mesh)
@@ -644,7 +648,10 @@ class ShardContext:
                 with _CACHE_LOCK:
                     hit = self._planes.get(key)
                 if hit is None:
-                    hit = self._build(ctx.ts)
+                    t0 = time.perf_counter()
+                    with stage("mesh-place"):
+                        hit = self._build(ctx.ts)
+                    hit.place_s = time.perf_counter() - t0
                     with _CACHE_LOCK:
                         self._planes[key] = hit
                 return hit
@@ -776,19 +783,22 @@ class _MeshExec2:
 _SHARD_CTX: dict = {}
 
 
-def get_shard_context(device: torch.device) -> ShardContext | None:
+def get_shard_context(device: torch.device,
+                      slots=None) -> ShardContext | None:
     """The mesh context of ``device``: built at the first call, when
-    BGT_TPU_SHARD is not 0 and there are at least two slots or more than
-    one process; None otherwise (the single-device tiers)."""
+    BGT_TPU_SHARD is not 0 and there are at least two slots (``slots``, or
+    ``local_slots(device)``) or more than one process; None otherwise (the
+    single-device tiers)."""
     key = str(device)
     with _CACHE_LOCK:
         if key in _SHARD_CTX:
             return _SHARD_CTX[key]
         ctx = None
         if os.environ.get("BGT_TPU_SHARD", "") != "0":
-            slots = len(meshlib.local_slots(device))
-            if slots >= 2 or distributed.world() > 1:
-                ctx = ShardContext(torch.device(device))
+            n = len(slots if slots is not None
+                    else meshlib.local_slots(device))
+            if n >= 2 or distributed.world() > 1:
+                ctx = ShardContext(torch.device(device), slots)
         _SHARD_CTX[key] = ctx
         return ctx
 
@@ -1431,7 +1441,6 @@ class FastView:
             self._run(out)
 
     def _run(self, out) -> None:
-        from ..log import stage
         bm = self.bm
         opt = self.opt
         if all(ctx.g.n_out == 0 for ctx in self.dbs):

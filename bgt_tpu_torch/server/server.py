@@ -12,11 +12,15 @@ is not ported: start-up builds the kernels and the CUDA context instead.
 Request threads share the databases, the tile store and the device-resident
 planes; each request builds its own reader state, and its producer thread
 launches on that thread's current stream (the default stream), so the
-read-back of its counts is the only synchronisation it waits for.
+read-back of its counts is the only synchronisation it waits for.  The
+producer runs with the card that was current when the server was made as
+its current device (a rank's own card after ``distributed.initialize``);
+on a mesh each launch runs under its slot's card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import threading
@@ -246,12 +250,14 @@ def _prepare(cfg: ServerConfig, form: dict, bm: BgtmReader):
     return _Opt(seekn, cfg.max_gt, max_read, not vcf_out), flag, vcf_out
 
 
-def run_query(cfg: ServerConfig, form: dict, device: torch.device):
+def run_query(cfg: ServerConfig, form: dict, device: torch.device,
+              card: torch.device | None = None):
     """Execute one request; returns (http_status, chunk iterator).
 
     The query runs on this package's ``FastView`` (looked up on
     ``query.fastpath`` at call time) in a producer thread, streaming its
-    output through a bounded queue.
+    output through a bounded queue; ``card``, where given, is that thread's
+    current CUDA device.
     """
     bm = BgtmReader(cfg.files)
     try:
@@ -262,11 +268,11 @@ def run_query(cfg: ServerConfig, form: dict, device: torch.device):
     except Exception:
         bm.close()
         raise
-    return 200, _stream(bm, opt, flag, vcf_out, device)
+    return 200, _stream(bm, opt, flag, vcf_out, device, card)
 
 
 def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
-            device: torch.device):
+            device: torch.device, card: torch.device | None = None):
     """The response body of a prepared query, produced in a worker thread.
 
     ``bm`` is closed by whichever side finishes last: a client that goes
@@ -286,7 +292,9 @@ def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
 
     def work() -> None:
         try:
-            fastpath.FastView(bm, opt, device).run(w)
+            with (torch.cuda.device(card) if card is not None
+                  else contextlib.nullcontext()):
+                fastpath.FastView(bm, opt, device).run(w)
         except _ClientGone:
             pass
         except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
@@ -324,6 +332,7 @@ def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
 class _Handler(BaseHTTPRequestHandler):
     cfg: ServerConfig = None
     device: torch.device = None
+    card: torch.device = None
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):
@@ -340,7 +349,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._send_whole(200, body.encode("latin-1", errors="replace"))
             return
         try:
-            status, chunks = run_query(self.cfg, form, self.device)
+            status, chunks = run_query(self.cfg, form, self.device,
+                                       self.card)
         except Exception as e:  # noqa: BLE001 - reported to the client
             self._send_whole(500, f"500 Internal Server Error: {e}\n".encode())
             return
@@ -383,9 +393,15 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(cfg: ServerConfig,
                 device: torch.device | str | None = None) -> ThreadingHTTPServer:
     """A threading HTTP server on ``cfg.port`` whose queries count on
-    ``device`` (default ``cuda``).  It sets no process-wide state."""
+    ``device`` (default ``cuda``: every visible card, or a rank's own).  It
+    sets no process-wide state."""
     device = torch.device("cuda" if device is None else device)
-    handler = type("Handler", (_Handler,), {"cfg": cfg, "device": device})
+    card = None
+    if device.type == "cuda" and torch.cuda.is_available():
+        card = (device if device.index is not None
+                else torch.device("cuda", torch.cuda.current_device()))
+    handler = type("Handler", (_Handler,),
+                   {"cfg": cfg, "device": device, "card": card})
     return ThreadingHTTPServer(("", cfg.port), handler)
 
 

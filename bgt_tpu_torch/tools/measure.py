@@ -93,18 +93,20 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     On a CUDA device: CUDA events around each run, queued behind a spin on
     the card, so that the events time the device's work and not the host's
     (argument checks, allocation, the ctypes call) before its first launch;
-    the host clock elsewhere."""
+    the host clock elsewhere.  The spin and the events run on ``device``'s
+    current stream, so ``fn`` must launch there."""
     device = torch.device(device)
     fn()
     times = []
     for _ in range(reps):
         if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(_SPIN_CYCLES)
-            a.record()
-            fn()
-            b.record()
+            with torch.cuda.device(device):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(_SPIN_CYCLES)
+                a.record()
+                fn()
+                b.record()
             b.synchronize()
             times.append(a.elapsed_time(b))
         else:

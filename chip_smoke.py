@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main path once on one CUDA card, and check it.
+"""Drive the torch port's main path once on the CUDA cards, and check it.
 
     python3 chip_smoke.py [--baseline OLD.cu ...]
+    python3 chip_smoke.py --cards N
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``; exits
-non-zero, printing no result, without them.  It imports nothing of JAX and
+non-zero, printing no result, without them.  Phases 1-12 run on cuda:0 and
+behave the same on a host of several cards; phase 13 runs where two or more
+Hopper cards are visible, and is logged as not run on one.  ``--cards N``
+makes phase 13 mandatory (fewer than N cards: exit non-zero, no result) and
+skips phases 3-12 (the preflight, the build and the cohort stay).  It imports nothing of JAX and
 nothing of ``bgt_tpu``: the cohort is made and imported by the port's own
 ``testing`` and ``importer``, and every device-tier output is held against
 the port's own host tier (``BGT_TPU_COUNT_TIER=host``: the same code as
@@ -71,8 +76,8 @@ each fatal on failure:
    ``BGT_TPU_MESH2=2x2``) the subset and GT queries, the device tier forced
    and the crossover gate off; then ``gtcshard <prefix> 2 2`` and two gloo
    ranks on this card (``chip_smoke.py --rank``, each opening only its
-   shard file) with the subset and GT queries cold and warm; then
-   ``entry.dryrun_multichip(4)``.  Every md5 must equal the host tier's, and
+   shard file; two ranks on one card keep gloo) with the subset and GT
+   queries cold and warm; then ``entry.dryrun_multichip(4, "cuda:0")``.  Every md5 must equal the host tier's, and
    kernel A must launch once per slot per counted query.  For 1 slot, 2
    slots, 2x2 and 2 ranks it prints the subset query's cold and warm
    seconds, kernel A's device ms per slot and the gloo collectives' ms;
@@ -96,12 +101,32 @@ each fatal on failure:
    buffer and one block a scan) is
    held equal to D on the cohort and timed in the same turns; last, the
    time of all-zero rows from random against identity permutations (the
-   output scatter's cost under the S form, which the inverse form removed).
+   output scatter's cost under the S form, which the inverse form removed);
+13. the mesh across N >= 2 cards: (a) one process over cuda:0..N-1 (bare
+   ``cuda``, the device tier forced, the crossover gate off) on the cohort,
+   the subset, two-group, eight-group and GT queries cold and warm, beside
+   the subset on one card; (b) the 2 x N/2 ``rs`` mesh over them, the
+   subset and GT queries; (g) the port's server on them under ``auto``, a
+   subset and a GT request, bodies equal to the host tier's; (f)
+   ``entry.dryrun_multichip(N)`` on cuda:0..N-1; (c) N ranks, one card each
+   (``LOCAL_RANK``), on NCCL, from ``gtcshard <prefix> N N`` files, and (d)
+   two ranks of N/2 cards each (``CUDA_VISIBLE_DEVICES``), the in-process
+   sum then NCCL, each with the subset and GT queries cold and warm: every
+   rank must report ``nccl`` and no gloo collective on the query path; (e)
+   a tile that no single card holds, 6,000,000 rows x 2,048 words (two
+   planes of 49.2 GB), made on the cards from seeded generators, counted
+   at 1 and 8 groups in process and on N NCCL ranks: each card's kernel A
+   against its plain version on 100,000 rows, the summed counts against
+   the host sum of every card's counts (and each rank's md5 against it),
+   each card's A beside its bytes bound, the sum beside its NVLink ring
+   bound and the whole call.  Every md5 must equal the host tier's, and
+   kernel A must launch once on each card of each counted query.
 
 The line before the last is a JSON object with each kernel's launches on its
-path (kernel A's: phases 5-6 and 11; D's: phase 12), its largest difference from the plain
-version, its times and its bound; the last line is
-``{"ok": true, "device": {...}}``.
+path (kernel A's: phases 5-6, 11 and 13; D's: phase 12), its largest
+difference from the plain version, its times and its bound (with
+``--cards``: A's on phase 13's tile, and no numbers for B, C and D); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1015,6 +1040,8 @@ MESH_CONFIGS = [
 ]
 MESH_ENV = ("BGT_TPU_COUNT_TIER", "BGT_TPU_SHARD_MIN_ROWS",
             "BGT_TPU_MESH_DEVICES", "BGT_TPU_MESH2", "BGT_TPU_TILE_SHARD")
+# what names a rank's place and cards; never inherited by a spawned rank
+RANK_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
 RANK_TIMEOUT_S = 300
 
 
@@ -1024,60 +1051,85 @@ def view_args(name: str) -> list:
 
 def counted_view(device, prefix: str, name: str) -> dict:
     """One ``view`` query with the count memo cleared: its md5, wall
-    seconds and kernel A's launches (the count is set to 0 just before)."""
+    seconds and kernel A's launches, in all and by card (the counts are set
+    to 0 just before)."""
     from bgt_tpu_torch import cli
     from bgt_tpu_torch.ops import counts
     from bgt_tpu_torch.query import fastpath
     fastpath._COUNT_MEMO.clear()
     counts.LAUNCHES["count_codes"] = 0
+    counts.CARD_LAUNCHES.clear()
     md5, dt, n, _err = capture(lambda: cli.main(
         ["view", *view_args(name), prefix], device=device))
     return {"md5": md5, "s": dt, "records": n,
-            "launches": counts.LAUNCHES["count_codes"]}
+            "launches": counts.LAUNCHES["count_codes"],
+            "cards": card_launches()}
 
 
-def slot_kernel_ms(torch, device, p0, p1) -> tuple[float, float]:
-    """Kernel A's device ms on one slot's planes at one group, and its
-    bytes bound.  These launches are not the path's."""
+def card_launches() -> dict:
+    """Kernel A's launches since the counts were last cleared, by card
+    index."""
+    from bgt_tpu_torch.ops import counts
+    return {str(card): n for (kernel, card), n in
+            sorted(counts.CARD_LAUNCHES.items(), key=str)
+            if kernel == "count_codes"}
+
+
+def slot_kernel_ms(torch, p0, p1) -> tuple[float, float]:
+    """Kernel A's device ms on one slot's planes at one group, on their
+    card, and its bytes bound.  These launches are not the path's."""
     from bgt_tpu_torch.ops import counts
     from bgt_tpu_torch.tools.measure import count_bound_ms, time_ms
-    m = torch.full((1, p0.shape[1]), -1, dtype=torch.int32, device=device)
-    ms = time_ms(lambda: counts.count_codes(p0, p1, m), device, 20)
+    m = torch.full((1, p0.shape[1]), -1, dtype=torch.int32, device=p0.device)
+    ms = time_ms(lambda: counts.count_codes(p0, p1, m), p0.device, 20)
     return ms, count_bound_ms(p0.shape[0], p0.shape[1], 1, 4)
 
 
 def collectives_text(stats: dict) -> str:
-    return "; ".join(
-        f"gloo {k} {v['calls']} calls, {v['ms']:.3f} ms"
-        + (f" ({v['ms'] / v['calls']:.3f} each)" if v["calls"] else "")
-        for k, v in stats.items())
+    """``mesh.COLLECTIVES``, the operations that ran."""
+    out = [f"{t} {op} {v['calls']} calls, {v['ms']:.3f} ms "
+           f"({v['ms'] / v['calls']:.3f} each), {v['bytes'] / 1e6:.3f} MB"
+           for t, ops in stats.items() for op, v in ops.items() if v["calls"]]
+    return "; ".join(out) or "no collective"
 
 
 def rank_main(args) -> int:
-    """One rank of phase 11's two: joins the gloo group from torchrun's
-    environment (through the CLI), opens only its shard file
-    (BGT_TPU_TILE_SHARD), runs the subset and GT queries cold and warm, and
-    writes what it saw to ``args.out`` as JSON."""
+    """One rank of phase 11 or 13: joins its group from torchrun's
+    environment and writes what it saw to ``args.out`` as JSON.  The
+    ``views`` job (through the CLI) opens only its shard file
+    (BGT_TPU_TILE_SHARD) and runs the subset and GT queries cold and warm;
+    the ``tile`` job counts its column slice of phase 13's tile."""
     import torch
+    from bgt_tpu_torch.parallel import distributed
     from bgt_tpu_torch.parallel import mesh as meshlib
     from bgt_tpu_torch.query import fastpath
 
     device = torch.device(args.device)
     res = {"rank": int(os.environ["RANK"]), "queries": {}}
-    for name in ("subset -G -C", "GT"):
-        for run in ("cold", "warm"):
-            res["queries"][f"{name} {run}"] = counted_view(device, args.prefix,
-                                                           name)
-    ctx = fastpath.get_shard_context(device)
-    stores = list(fastpath._TILE_CACHE.values())
-    if ctx is None or not ctx.multi_process or not stores \
-            or not all(ts.is_shard for ts in stores):
-        raise AssertionError("the rank did not run on the mesh from its shard")
-    res["collectives"] = {k: dict(v) for k, v in meshlib.COLLECTIVES.items()}
-    ex = next(iter(ctx._planes.values()))
-    res["rows"], res["words"] = ex.p0[0].shape
-    res["kernel_ms"], res["bound_ms"] = slot_kernel_ms(torch, device,
-                                                       ex.p0[0], ex.p1[0])
+    if args.rank_job == "tile":
+        distributed.initialize(timeout_s=RANK_TIMEOUT_S, device=device)
+        res["tile"] = tile_counts(torch, distributed.global_mesh(
+            device=device))
+    else:
+        for name in ("subset -G -C", "GT"):
+            for run in ("cold", "warm"):
+                res["queries"][f"{name} {run}"] = counted_view(
+                    device, args.prefix, name)
+        ctx = fastpath.get_shard_context(device)
+        stores = list(fastpath._TILE_CACHE.values())
+        if ctx is None or not ctx.multi_process or not stores \
+                or not all(ts.is_shard for ts in stores):
+            raise AssertionError("the rank did not run on the mesh from its "
+                                 "shard")
+        ex = next(iter(ctx._planes.values()))
+        res["rows"], res["words"] = ex.p0[0].shape
+        res["slots"] = [str(d) for d in ctx.mesh.slots]
+        res["mesh"] = ctx.mesh.size
+        res["place_s"] = ex.place_s
+        res["collectives"] = json.loads(json.dumps(meshlib.COLLECTIVES))
+        res["kernel_ms"], res["bound_ms"] = slot_kernel_ms(torch, ex.p0[0],
+                                                           ex.p1[0])
+    res["backend"] = distributed.collective_backend()
     res["imported"] = sorted({m.split(".")[0] for m in sys.modules}
                              & {"jax", "bgt_tpu"})
     Path(args.out).write_text(json.dumps(res))
@@ -1085,36 +1137,36 @@ def rank_main(args) -> int:
     return 0
 
 
-def two_ranks(device, prefix: str, work: Path) -> list:
-    """Phase 11 (b): the shard files of a two-process mesh, then two ranks
-    on this card, each a ``chip_smoke.py --rank`` process; returns their
-    results.  A rank that fails or outlives its timeout fails the phase."""
+def spawn_ranks(work: Path, envs: list, device: str, job: str = "views",
+                prefix: str = "") -> list:
+    """One ``chip_smoke.py --rank`` process per entry of ``envs`` (each
+    rank's own environment beside the group's), all started together;
+    returns their results in rank order.  A rank that fails or outlives
+    RANK_TIMEOUT_S fails the phase, with the end of its output (NCCL's
+    warnings included)."""
     import socket
-
-    from bgt_tpu_torch import cli
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        if cli.main(["gtcshard", prefix, "2", "2"]) != 0:
-            raise RuntimeError("gtcshard failed")
-    log(f"[mesh] gtcshard {prefix} 2 2: {time.perf_counter() - t0:.1f} s")
     work.mkdir(parents=True, exist_ok=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = str(s.getsockname()[1])
-    env = {k: v for k, v in os.environ.items() if k not in MESH_ENV}
+    base = {k: v for k, v in os.environ.items()
+            if k not in MESH_ENV + RANK_ENV}
+    n = len(envs)
     procs = []
     try:
-        for k in (0, 1):
+        for k, env in enumerate(envs):
             procs.append(subprocess.Popen(
                 [sys.executable, str(REPO / "chip_smoke.py"), "--rank",
-                 "--prefix", prefix, "--out", str(work / f"rank{k}.json"),
-                 "--device", str(device)],
-                env={**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
-                     "RANK": str(k), "WORLD_SIZE": "2",
-                     "BGT_TPU_TILE_SHARD": f"{k}:2"},
+                 "--rank-job", job, "--prefix", prefix,
+                 "--out", str(work / f"rank{k}.json"), "--device", device],
+                env={**base, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+                     "RANK": str(k), "WORLD_SIZE": str(n),
+                     "NCCL_DEBUG": "WARN", **env},
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
         for k, p in enumerate(procs):
-            out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
             if p.returncode != 0:
                 raise RuntimeError(f"rank {k} exited {p.returncode}:\n"
                                    f"{out[-3000:]}")
@@ -1123,9 +1175,73 @@ def two_ranks(device, prefix: str, work: Path) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for k in (0, 1):
-            Path(f"{prefix}.gtc.shard-{k}-of-2").unlink(missing_ok=True)
-    return [json.loads((work / f"rank{k}.json").read_text()) for k in (0, 1)]
+    return [json.loads((work / f"rank{k}.json").read_text())
+            for k in range(n)]
+
+
+def shard_ranks(prefix: str, work: Path, envs: list, slots: int,
+                device: str) -> list:
+    """The shard files of a mesh of len(envs) processes and ``slots``
+    slots in all (``gtcshard``), then one ``views`` rank per process, each
+    opening only its shard file; the files are removed after."""
+    from bgt_tpu_torch import cli
+    n = len(envs)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["gtcshard", prefix, str(n), str(slots)]) != 0:
+            raise RuntimeError("gtcshard failed")
+    log(f"[mesh] gtcshard {prefix} {n} {slots}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        return spawn_ranks(work, [{**env, "BGT_TPU_TILE_SHARD": f"{k}:{n}"}
+                                  for k, env in enumerate(envs)],
+                           device, prefix=prefix)
+    finally:
+        for k in range(n):
+            Path(f"{prefix}.gtc.shard-{k}-of-{n}").unlink(missing_ok=True)
+
+
+def check_ranks(label: str, ranks: list, ref: dict, per_rank: int,
+                backend: str, card: str) -> int:
+    """Each rank's queries against the host tier's md5, kernel A's
+    launches (``per_rank`` a counted query, one on each of its cards), its
+    transport, and no gloo collective where it is NCCL; logs each query and
+    a summary line a rank.  Returns the ranks' launches."""
+    launches = 0
+    for res in ranks:
+        r = res["rank"]
+        for key, got in res["queries"].items():
+            name = key.rsplit(" ", 1)[0]
+            log(f"[mesh] {label}: rank {r} {key}: {got['s']:.3f} s, "
+                f"{got['records']} records, md5 {got['md5']}, kernel "
+                f"launches +{got['launches']} by card {got['cards']}")
+            if got["md5"] != ref[name]:
+                raise AssertionError(f"{label} rank {r} {key}: md5 != host "
+                                     "tier")
+            if got["launches"] != per_rank or \
+                    sorted(got["cards"].values()) != [1] * per_rank:
+                raise AssertionError(f"{label} rank {r} {key}: kernel A "
+                                     f"launched {got['cards']}")
+            launches += got["launches"]
+        if res["imported"]:
+            raise AssertionError(f"rank {r} imported {res['imported']}")
+        if res["backend"] != backend:
+            raise AssertionError(f"{label} rank {r}: transport "
+                                 f"{res['backend']}, not {backend}")
+        gloo = sum(v["calls"] for v in res["collectives"]["gloo"].values())
+        if backend == "nccl" and gloo:
+            raise AssertionError(f"{label} rank {r}: {gloo} gloo "
+                                 "collectives on the query path")
+        q = res["queries"]
+        log(f"[mesh] {label}: rank {r} on {res['slots']} of a mesh of "
+            f"{res['mesh']}, transport {res['backend']}: subset cold "
+            f"{q['subset -G -C cold']['s']:.3f} s (group join, shard load "
+            f"and placement included; placement {res['place_s']:.3f} s), "
+            f"warm {q['subset -G -C warm']['s']:.3f} s; kernel A "
+            f"{res['kernel_ms']:.4f} ms per slot on {res['rows']} x "
+            f"{res['words']} words at 1 group (bound {res['bound_ms']:.4f} "
+            f"ms); {collectives_text(res['collectives'])} | {card}")
+    return launches
 
 
 def mesh_path(torch, device, prefix: str, ref: dict) -> int:
@@ -1182,7 +1298,7 @@ def mesh_path(torch, device, prefix: str, ref: dict) -> int:
         else:
             ex = next(iter(ctx._planes.values()))
             p0, p1 = ex.p0[0], ex.p1[0]
-        ms, bound = slot_kernel_ms(torch, device, p0, p1)
+        ms, bound = slot_kernel_ms(torch, p0, p1)
         cold, warm = (r[2]["s"] for r in runs[:2])
         log(f"[mesh] {label}: subset cold {cold:.3f} s, warm {warm:.3f} s; "
             f"kernel A {ms:.4f} ms per slot on {p0.shape[0]} x {p0.shape[1]} "
@@ -1191,30 +1307,9 @@ def mesh_path(torch, device, prefix: str, ref: dict) -> int:
     release()
     set_env(**{k: None for k in MESH_ENV})
 
-    ranks = two_ranks(device, prefix, REPO / "build" / "chip_smoke" / "ranks")
-    for res in ranks:
-        for key, got in res["queries"].items():
-            name = key.rsplit(" ", 1)[0]
-            log(f"[mesh] 2 ranks: rank {res['rank']} {key}: {got['s']:.3f} s, "
-                f"{got['records']} records, md5 {got['md5']}, kernel "
-                f"launches +{got['launches']}")
-            if got["md5"] != ref[name]:
-                raise AssertionError(f"rank {res['rank']} {key}: md5 != host "
-                                     "tier")
-            if got["launches"] != 1:
-                raise AssertionError(f"rank {res['rank']} {key}: kernel A "
-                                     f"launched {got['launches']} times")
-            launches += got["launches"]
-        if res["imported"]:
-            raise AssertionError(f"rank {res['rank']} imported "
-                                 f"{res['imported']}")
-        q = res["queries"]
-        log(f"[mesh] 2 ranks: rank {res['rank']}: subset cold "
-            f"{q['subset -G -C cold']['s']:.3f} s (group join, shard load "
-            f"and placement included), warm {q['subset -G -C warm']['s']:.3f} "
-            f"s; kernel A {res['kernel_ms']:.4f} ms per slot on {res['rows']} "
-            f"x {res['words']} words at 1 group (bound {res['bound_ms']:.4f} "
-            f"ms); {collectives_text(res['collectives'])} | {card}")
+    ranks = shard_ranks(prefix, REPO / "build" / "chip_smoke" / "ranks",
+                        [{}, {}], 2, str(device))
+    launches += check_ranks("2 ranks", ranks, ref, 1, "gloo", card)
 
     t0 = time.perf_counter()
     out = entry.dryrun_multichip(4, device)
@@ -1222,9 +1317,399 @@ def mesh_path(torch, device, prefix: str, ref: dict) -> int:
         f"{out['counts'].shape}, keep {int(out['keep'].sum())} of "
         f"{out['keep'].size}, 2-axis pairs {out['pairs2'].shape}, production "
         f"2x2 view equal to the host tier, in {time.perf_counter() - t0:.2f} s")
-    if meshlib.COLLECTIVES["all_reduce"]["calls"]:
-        raise AssertionError("an in-process mesh made a gloo collective")
+    if any(v["calls"] for t in ("gloo", "nccl")
+           for v in meshlib.COLLECTIVES[t].values()):
+        raise AssertionError("an in-process mesh made a cross-rank "
+                             "collective")
     return launches
+
+
+# phase 13: the queries on the cards in one process, and the tile that no
+# single card holds (HRC's 64,976 haplotypes pad to 2,031 words; 2,048
+# split evenly over 2, 4 or 8 cards), counted at 1 and 8 groups
+CARD_QUERIES = ("subset -G -C", "two-group -f AC1>AC2", "eight-group -G -C",
+                "GT")
+TILE_ROWS = 6_000_000
+TILE_WORDS = 2_048
+TILE_GROUPS = (1, 8)
+TILE_CHECK_ROWS = 100_000
+TILE_REPS = 3
+NVLINK_GBS = 450.0  # H100 SXM data sheet: 900 GB/s NVLink, 450 each way
+
+
+def sync(torch, devices) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def tile_counts(torch, mesh, plain: bool = False) -> dict:
+    """Phase 13 (e) on this process's slots of ``mesh``: each slot's column
+    slice of the TILE_ROWS x TILE_WORDS tile, made on its card from a
+    generator seeded by its mesh position (never on the host), and at each
+    of TILE_GROUPS groups: each slot's kernel A against its plain version
+    on TILE_CHECK_ROWS rows, exact; each slot's A in ms; then the sharded
+    count (``sharded_count_fn``) TILE_REPS times after a warm-up, its
+    median ms (summed counts ready on the first slot) and launches, the
+    sum's ms per call from ``mesh.COLLECTIVES``, and the md5 of the summed
+    counts.  In one process (``mesh.world`` 1) the summed counts are also
+    held to the host sum of every slot's own counts.  With ``plain``, the
+    plain version's ms on the first slot's whole slice at 1 group."""
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    from bgt_tpu_torch.tools.measure import time_ms
+
+    rows, w = TILE_ROWS, TILE_WORDS // mesh.size
+    p0, p1 = [], []
+    t0 = time.perf_counter()
+    for i, dev in enumerate(mesh.slots):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 1000 + mesh.first + i)
+        for plane in (p0, p1):
+            plane.append(torch.randint(-2**31, 2**31 - 1, (rows, w),
+                                       dtype=torch.int32, device=dev,
+                                       generator=gen))
+    sync(torch, mesh.slots)
+    out = {"make_s": time.perf_counter() - t0, "rows": rows, "words": w,
+           "groups": {}}
+    fn = meshlib.sharded_count_fn(mesh)
+    for g in TILE_GROUPS:
+        masks = np.random.default_rng(SEED + g).integers(
+            0, 2**32, (g, TILE_WORDS), dtype=np.uint32)
+        msk = [counts.planes_to_torch(
+            masks[:, (mesh.first + i) * w: (mesh.first + i + 1) * w], dev)
+            for i, dev in enumerate(mesh.slots)]
+        err = 0
+        check = min(rows, TILE_CHECK_ROWS)
+        for a, b, m in zip(p0, p1, msk):
+            got = counts.count_codes_range(a, b, m, 0, check)
+            want = counts.count_codes_reference(a[:check], b[:check], m)
+            err = max(err, int((got - want).abs().max()))
+        slot_ms = [time_ms(lambda a=a, b=b, m=m: counts.count_codes(a, b, m),
+                           a.device, 5) for a, b, m in zip(p0, p1, msk)]
+        res = {"max_abs_err": err, "check_rows": check, "slot_ms": slot_ms}
+        if mesh.world == 1:
+            local = [counts.count_codes(a, b, m).cpu().numpy()
+                     for a, b, m in zip(p0, p1, msk)]
+            host = np.sum([x.astype(np.int64) for x in local], axis=0)
+            del local
+        fn(p0, p1, msk)  # warm-up: the peer and NCCL paths' first call
+        meshlib.reset_collectives()
+        counts.LAUNCHES["count_codes"] = 0
+        counts.CARD_LAUNCHES.clear()
+        times = []
+        for _ in range(TILE_REPS):
+            sync(torch, mesh.slots)
+            t0 = time.perf_counter()
+            summed = fn(p0, p1, msk)
+            sync(torch, [summed.device])
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["launches"] = counts.LAUNCHES["count_codes"]
+        res["cards"] = card_launches()
+        res["call_ms"] = sorted(times)[TILE_REPS // 2]
+        res["collectives"] = json.loads(json.dumps(meshlib.COLLECTIVES))
+        got = summed.cpu().numpy()
+        res["bytes"] = got.nbytes
+        res["md5"] = hashlib.md5(got.tobytes()).hexdigest()
+        if mesh.world == 1:
+            res["host_sum_equal"] = bool(np.array_equal(got, host))
+            del host
+        del got, summed, msk
+        out["groups"][str(g)] = res
+    if plain:
+        m1 = counts.planes_to_torch(
+            np.full((1, w), 0xFFFFFFFF, dtype=np.uint32), p0[0].device)
+        out["plain_ms"] = time_ms(
+            lambda: counts.count_codes_reference(p0[0], p1[0], m1),
+            p0[0].device, 1)
+    del p0, p1
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_bound_ms(nbytes: int, n: int) -> float:
+    """The least time of an all-reduce of ``nbytes`` over ``n`` cards: a
+    ring moves 2 (n - 1) / n of the bytes through each card's link, at
+    NVLINK_GBS each way."""
+    return 2 * (n - 1) / n * nbytes / (NVLINK_GBS * 1e9) * 1e3
+
+
+def tile_text(label: str, t: dict, n: int, transport: str) -> list:
+    """Phase 13 (e)'s lines for one run of ``tile_counts``."""
+    from bgt_tpu_torch.tools.measure import count_bound_ms
+    lines = []
+    for g, r in t["groups"].items():
+        bound = count_bound_ms(t["rows"], t["words"], int(g), 4)
+        stat = r["collectives"][transport]["all_reduce"]
+        sum_ms = stat["ms"] / stat["calls"] if stat["calls"] else float("nan")
+        lines.append(
+            f"[cards] tile {label}, {g} group(s): kernel A per card "
+            f"{', '.join(f'{ms:.3f}' for ms in r['slot_ms'])} ms on "
+            f"{t['rows']} x {t['words']} words (bound {bound:.3f} ms, share "
+            f"{bound / max(r['slot_ms']):.3f} of the slowest); {transport} "
+            f"sum {sum_ms:.3f} ms a call of {r['bytes'] / 1e6:.1f} MB (ring "
+            f"bound {ring_bound_ms(r['bytes'], n):.3f} ms); whole call "
+            f"{r['call_ms']:.3f} ms (median of {TILE_REPS}); A launches "
+            f"{r['launches']} by card {r['cards']}; A vs plain on "
+            f"{r['check_rows']} rows max_abs_err {r['max_abs_err']}; md5 "
+            f"{r['md5']}")
+    return lines
+
+
+def release_mesh(torch) -> None:
+    """Drop every placed plane and mesh context, and the cards' caches."""
+    from bgt_tpu_torch.query import fastpath
+    fastpath.reset_shard_context()
+    fastpath._DEVICE_CACHE.clear()
+    torch.cuda.empty_cache()
+    set_env(**{k: None for k in MESH_ENV})
+
+
+def cards_views(torch, cards, prefix: str, ref: dict, card: str) -> int:
+    """Phase 13 (a), (b): the cohort's queries in one process over the
+    cards (bare ``cuda``) and on the 2 x n/2 ``rs`` mesh over them, beside
+    one card, the device tier forced and the crossover gate off; returns
+    kernel A's launches."""
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    from bgt_tpu_torch.query import fastpath
+    n = len(cards)
+    bare = torch.device("cuda")
+    every = {str(i): 1 for i in range(n)}
+    configs = [("1 card", cards[0], {}, ("subset -G -C",), {"0": 1}, []),
+               (f"{n} cards", bare, {}, CARD_QUERIES, every, ["s"])]
+    if n % 2 == 0:
+        configs.append((f"2x{n // 2} cards", bare,
+                        {"BGT_TPU_MESH2": f"2x{n // 2}"},
+                        ("subset -G -C", "GT"), every, ["rs"]))
+    launches = 0
+    for label, dev, env, names, want_cards, want_kinds in configs:
+        release_mesh(torch)
+        set_env(BGT_TPU_COUNT_TIER="device", BGT_TPU_SHARD_MIN_ROWS="0", **env)
+        meshlib.reset_collectives()
+        runs = {}
+        for name in names:
+            for run in ("cold", "warm"):
+                got = counted_view(dev, prefix, name)
+                runs[name, run] = got
+                log(f"[cards] {label}: {name} {run}: {got['s']:.3f} s, "
+                    f"{got['records']} records, md5 {got['md5']}, kernel "
+                    f"launches +{got['launches']} by card {got['cards']}")
+                if got["md5"] != ref[name]:
+                    raise AssertionError(f"{label} {name}: md5 != host tier")
+                if got["cards"] != want_cards:
+                    raise AssertionError(f"{label} {name}: kernel A by card "
+                                         f"{got['cards']}, not {want_cards}")
+                launches += got["launches"]
+        ctx = fastpath.get_shard_context(dev)
+        kinds = [e.kind for e in ctx._planes.values()] if ctx else []
+        if kinds != want_kinds:
+            raise AssertionError(f"{label}: executors {kinds}")
+        if ctx is None:
+            dt = next(iter(fastpath._DEVICE_CACHE.values()))
+            planes, place = [(dt.p0, dt.p1)], "single device"
+        else:
+            ex = next(iter(ctx._planes.values()))
+            if [str(d) for d in ctx.mesh.slots] != [str(d) for d in cards]:
+                raise AssertionError(f"{label}: slots {ctx.mesh.slots}")
+            planes = list(zip(ex.p0, ex.p1))
+            place = f"placement {ex.place_s:.3f} s"
+        per_slot = [slot_kernel_ms(torch, a, b) for a, b in planes]
+        log(f"[cards] {label}: subset cold "
+            f"{runs['subset -G -C', 'cold']['s']:.3f} s ({place}), warm "
+            f"{runs['subset -G -C', 'warm']['s']:.3f} s; kernel A per slot "
+            f"on {planes[0][0].shape[0]} x {planes[0][0].shape[1]} words at "
+            "1 group " + ", ".join(f"{ms:.4f}" for ms, _ in per_slot)
+            + f" ms (bound {per_slot[0][1]:.4f} ms); "
+            f"{collectives_text(meshlib.COLLECTIVES)} | {card}")
+    return launches
+
+
+def cards_server(torch, cards, prefix: str) -> int:
+    """Phase 13 (g): the port's server in process over the cards (bare
+    ``cuda``) under ``auto``, a subset and a GT request cold and warm,
+    against the host tier's bodies; returns kernel A's launches."""
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.query import fastpath
+    from bgt_tpu_torch.query.engine import BgtFile
+    from bgt_tpu_torch.server import server
+    n = len(cards)
+    bare = torch.device("cuda")
+    cfg = server.ServerConfig()
+    cfg.port = 0
+    cfg.files = [BgtFile(prefix)]
+    cfg.prefixes = [os.path.basename(prefix)]
+    queries = {k: SERVER_QUERIES[k][0] for k in ("subset",
+                                                  "g= GT dump r= subset")}
+    want = {}
+    set_env(BGT_TPU_COUNT_TIER="host")
+    with serving(server.make_server(cfg, bare)) as port:
+        for name, q in queries.items():
+            fastpath._COUNT_MEMO.clear()
+            want[name] = fetch(port, q)[:2]
+    set_env(BGT_TPU_COUNT_TIER=None)
+    launches = 0
+    with serving(server.make_server(cfg, bare)) as port:
+        for run in ("cold", "warm"):
+            for name, q in queries.items():
+                fastpath._COUNT_MEMO.clear()
+                counts.LAUNCHES["count_codes"] = 0
+                counts.CARD_LAUNCHES.clear()
+                status, body, dt = fetch(port, q)
+                by_card = card_launches()
+                log(f"[cards] server on {n} cards under auto: {name} {run}: "
+                    f"{status}, {dt:.3f} s, {len(body)} bytes, md5 "
+                    f"{hashlib.md5(body).hexdigest()}, kernel launches by "
+                    f"card {by_card}")
+                if (status, body) != want[name]:
+                    raise AssertionError(f"server {name}: cards != host tier")
+                if name == "subset" and by_card != {str(i): 1
+                                                    for i in range(n)}:
+                    raise AssertionError(f"server {name}: kernel A by card "
+                                         f"{by_card}")
+                launches += counts.LAUNCHES["count_codes"]
+    return launches
+
+
+def cards_dryrun(torch, cards) -> int:
+    """Phase 13 (f): ``entry.dryrun_multichip(n)`` on cuda:0..n-1, with no
+    cross-rank collective in this process.  Its launches are checks, not
+    the path's: returns 0."""
+    from bgt_tpu_torch import entry
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    n = len(cards)
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(n)
+    log(f"[cards] dryrun_multichip({n}) on {', '.join(map(str, cards))}: "
+        f"counts {out['counts'].shape}, keep {int(out['keep'].sum())} of "
+        f"{out['keep'].size}"
+        + (f", 2-axis pairs {out['pairs2'].shape}, production 2x{n // 2} "
+           "view equal to the host tier" if "pairs2" in out else "")
+        + f", in {time.perf_counter() - t0:.2f} s")
+    if any(v["calls"] for t in ("gloo", "nccl")
+           for v in meshlib.COLLECTIVES[t].values()):
+        raise AssertionError("an in-process mesh made a cross-rank "
+                             "collective")
+    return 0
+
+
+def cards_ranks(cards, prefix: str, ref: dict, card: str, work: Path) -> int:
+    """Phase 13 (c), (d): n NCCL ranks of one card each (LOCAL_RANK), then
+    two of n/2 cards each (CUDA_VISIBLE_DEVICES halves: the in-process sum,
+    then NCCL), from shard files; returns kernel A's launches."""
+    n = len(cards)
+    ranks = shard_ranks(prefix, work, [{"LOCAL_RANK": str(k)}
+                                       for k in range(n)], n, "cuda")
+    for k, res in enumerate(ranks):
+        if res["slots"] != [f"cuda:{k}"]:
+            raise AssertionError(f"rank {k} on {res['slots']}")
+    launches = check_ranks(f"{n} ranks", ranks, ref, 1, "nccl", card)
+    if n % 2:
+        return launches
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = vis.split(",") if vis else [str(i) for i in range(n)]
+    h = n // 2
+    ranks = shard_ranks(prefix, work,
+                        [{"CUDA_VISIBLE_DEVICES": ",".join(ids[:h])},
+                         {"CUDA_VISIBLE_DEVICES": ",".join(ids[h:n])}],
+                        n, "cuda")
+    launches += check_ranks(f"2 ranks x {h} cards", ranks, ref, h, "nccl",
+                            card)
+    for res in ranks:
+        if h > 1 and not res["collectives"]["peer"]["all_reduce"]["calls"]:
+            raise AssertionError("2 ranks: no in-process sum over cards")
+    return launches
+
+
+def cards_tile(torch, cards, work: Path, out: dict) -> int:
+    """Phase 13 (e): the tile in process over the cards, then on n NCCL
+    ranks of one card each; every rank's summed counts must have the
+    in-process md5.  Fills ``out`` with the in-process ``tile_counts``;
+    returns kernel A's launches (the sharded calls')."""
+    from bgt_tpu_torch.parallel import mesh as meshlib
+    n = len(cards)
+    t_in = tile_counts(torch, meshlib.make_mesh(cards), plain=True)
+    out.update(t_in)
+    total = TILE_ROWS * TILE_WORDS * 4 * 2
+    log(f"[cards] tile {TILE_ROWS} x {TILE_WORDS} words, two planes of "
+        f"{total / 2e9:.1f} GB ({total / n / 1e9:.1f} GB a card), made on "
+        f"the cards in {t_in['make_s']:.2f} s; plain version on one card's "
+        f"slice at 1 group {t_in['plain_ms']:.1f} ms")
+    for line in tile_text(f"in process on {n} cards", t_in, n, "peer"):
+        log(line)
+    launches = 0
+    for g, r in t_in["groups"].items():
+        if (not r["host_sum_equal"] or r["max_abs_err"]
+                or r["cards"] != {str(i): TILE_REPS for i in range(n)}):
+            raise AssertionError(f"tile at {g} groups: {r}")
+        launches += r["launches"]
+    ranks = spawn_ranks(work, [{"LOCAL_RANK": str(k)} for k in range(n)],
+                        "cuda", job="tile")
+    for res in ranks:
+        if res["backend"] != "nccl" or res["imported"]:
+            raise AssertionError(f"tile rank {res['rank']}: {res['backend']}, "
+                                 f"imported {res['imported']}")
+        for line in tile_text(f"rank {res['rank']} of {n} NCCL ranks",
+                              res["tile"], n, "nccl"):
+            log(line)
+        for g, r in res["tile"]["groups"].items():
+            if (r["md5"] != t_in["groups"][g]["md5"] or r["max_abs_err"]
+                    or r["launches"] != TILE_REPS
+                    or r["collectives"]["gloo"]["all_reduce"]["calls"]):
+                raise AssertionError(f"tile rank {res['rank']} at {g} "
+                                     f"groups: {r}")
+            launches += r["launches"]
+    return launches
+
+
+def cards_path(torch, n: int, prefix: str, ref: dict) -> dict:
+    """Phase 13, the mesh across ``n`` cards: (a), (b) ``cards_views``; (g)
+    ``cards_server``; (f) ``cards_dryrun``; (c), (d) ``cards_ranks``; (e)
+    ``cards_tile``.  Each part runs even where one before it failed, and
+    the phase fails after them if any did.  Returns kernel A's launches on
+    the path, its largest difference from the plain version on the tile,
+    and its times there."""
+    import traceback
+
+    from bgt_tpu_torch import cli
+    from bgt_tpu_torch.tools.measure import count_bound_ms, describe
+
+    cards = [torch.device("cuda", i) for i in range(n)]
+    card = "; ".join(f"{d}: " + ", ".join(str(x) for x in describe(d))
+                     for d in cards)
+    log(f"[cards] phase 13 on {n} cards: {card}")
+    ref = dict(ref)
+    for name in CARD_QUERIES:
+        if name not in ref:
+            ref[name] = host_tier(lambda: cli.main(
+                ["view", *view_args(name), prefix], device=cards[0]))[0]
+    work = REPO / "build" / "chip_smoke" / "ranks"
+    tile: dict = {}
+    launches, failed = 0, []
+    for label, fn in (
+            ("(a), (b) one process", lambda: cards_views(torch, cards, prefix,
+                                                          ref, card)),
+            ("(g) server", lambda: cards_server(torch, cards, prefix)),
+            ("(f) dryrun_multichip", lambda: cards_dryrun(torch, cards)),
+            ("(c), (d) NCCL ranks", lambda: cards_ranks(cards, prefix, ref,
+                                                         card, work)),
+            ("(e) tile", lambda: cards_tile(torch, cards, work, tile))):
+        try:
+            launches += fn()
+        except Exception:  # noqa: BLE001 - reported, and the phase fails
+            failed.append(label)
+            log(f"[cards] {label} FAILED:\n{traceback.format_exc()}")
+        finally:
+            release_mesh(torch)
+    if failed:
+        raise AssertionError(f"phase 13: {', '.join(failed)} failed")
+    one = tile["groups"]["1"]
+    log(f"[cards] phase 13: kernel A launches on the path {launches}")
+    return {"launches": launches,
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in tile["groups"].values()),
+            "times": (one["slot_ms"][0], tile["plain_ms"],
+                      count_bound_ms(TILE_ROWS, tile["words"], 1, 4),
+                      "bytes")}
 
 
 # phase 12's exactness shapes of kernel D: haplotypes (one run a row; a
@@ -1571,10 +2056,17 @@ def main(argv=None) -> int:
                          "(bgt_pbwt_decode, with this revision's signature "
                          "or the S form's), timed beside D in phase 12; may "
                          "be given more than once")
+    ap.add_argument("--cards", type=int, default=0, metavar="N",
+                    help="make phase 13 (the mesh across cards) mandatory: "
+                         "exit non-zero, printing no result, with fewer than "
+                         "N visible cards; phases 3-12 are skipped")
     ap.add_argument("--rank", action="store_true",
-                    help="run as one rank of phase 11 (its environment names "
-                         "the group: MASTER_ADDR, MASTER_PORT, RANK, "
-                         "WORLD_SIZE), on --prefix, writing --out")
+                    help="run as one rank of phase 11 or 13 (its environment "
+                         "names the group: MASTER_ADDR, MASTER_PORT, RANK, "
+                         "WORLD_SIZE, and LOCAL_RANK or CUDA_VISIBLE_DEVICES "
+                         "its cards), writing --out")
+    ap.add_argument("--rank-job", choices=("views", "tile"), default="views",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--prefix", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda:0", help=argparse.SUPPRESS)
@@ -1587,9 +2079,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    cap = torch.cuda.get_device_capability(0)
-    if cap != (9, 0):
-        print(f"chip_smoke: needs compute capability (9, 0), found {cap}",
+    n_cards = torch.cuda.device_count()
+    caps = [torch.cuda.get_device_capability(i) for i in range(n_cards)]
+    if caps[0] != (9, 0):
+        print(f"chip_smoke: needs compute capability (9, 0), found {caps[0]}",
+              file=sys.stderr)
+        return 2
+    if args.cards and (args.cards < 2 or n_cards < args.cards
+                       or any(c != (9, 0) for c in caps)):
+        print(f"chip_smoke: --cards {args.cards} needs at least 2 and as "
+              f"many Hopper cards; {n_cards} visible, capabilities {caps}",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
@@ -1597,8 +2096,10 @@ def main(argv=None) -> int:
     from bgt_tpu_torch.tools import measure
 
     device = torch.device("cuda", 0)
+    cap = caps[0]
     log(f"[preflight] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, capability {cap}")
+        f"{torch.cuda.get_device_name(0)}, capability {cap}, {n_cards} "
+        f"card(s) visible")
     log(", ".join(measure.describe(device)))
 
     t0 = time.perf_counter()
@@ -1613,45 +2114,67 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
-    bases = {"count_codes": {}, "count_codes_narrow": {}, "pbwt_decode": {}}
-    for src in args.baseline:
-        kind, lib = build_baseline(src)
-        bases[kind][src.stem] = lib
-        log(f"[build] baseline {src}: {kind}")
-    err3 = check_kernel(torch, counts, device)
-    timing = time_kernel(torch, counts, device, bases["count_codes"])
+    launches = dict.fromkeys(KERNELS, 0)
+    # with --cards, kernels B, C and D are not run
+    times = dict.fromkeys(KERNELS, (None, None, None, None))
+    errs = dict.fromkeys(KERNELS, None)
+    ref = {}
+    if args.cards:
+        log(f"[cards] --cards {args.cards}: phases 3-12 skipped")
+        prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
+    else:
+        bases = {"count_codes": {}, "count_codes_narrow": {},
+                 "pbwt_decode": {}}
+        for src in args.baseline:
+            kind, lib = build_baseline(src)
+            bases[kind][src.stem] = lib
+            log(f"[build] baseline {src}: {kind}")
+        err3 = check_kernel(torch, counts, device)
+        timing = time_kernel(torch, counts, device, bases["count_codes"])
 
-    prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
-    view_launches, ref = main_path(torch, device, prefix, QUERIES)
-    launches = {"count_codes": view_launches}
-    log(f"[main] main-path kernel launches: {view_launches}")
+        prefix = make_cohort(REPO / "build" / "chip_smoke", 32_488, 100_000)
+        view_launches, ref = main_path(torch, device, prefix, QUERIES)
+        launches["count_codes"] = view_launches
+        log(f"[main] main-path kernel launches: {view_launches}")
 
-    rn = check_raw_narrow(torch, counts, device, bases["count_codes_narrow"])
-    launches.update(kernel_paths(torch, counts, device))
+        rn = check_raw_narrow(torch, counts, device,
+                              bases["count_codes_narrow"])
+        launches.update(kernel_paths(torch, counts, device))
 
-    server_launches = server_path(torch, device, prefix)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED + 3)
-    more = api_entry_decode(torch, device, prefix, gen)
-    mesh_launches = mesh_path(torch, device, prefix, ref)
-    launches["count_codes"] += mesh_launches
-    log(f"[paths] count_codes launches: view {view_launches}, "
-        f"server {server_launches}, api {more['api']}, entry {more['entry']}, "
-        f"mesh {mesh_launches}")
-    dec = decode_path(torch, device, prefix, bases["pbwt_decode"])
-    launches["pbwt_decode"] = dec["launches"]
+        server_launches = server_path(torch, device, prefix)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED + 3)
+        more = api_entry_decode(torch, device, prefix, gen)
+        mesh_launches = mesh_path(torch, device, prefix, ref)
+        launches["count_codes"] += mesh_launches
+        log(f"[paths] count_codes launches: view {view_launches}, "
+            f"server {server_launches}, api {more['api']}, entry "
+            f"{more['entry']}, mesh {mesh_launches}")
+        dec = decode_path(torch, device, prefix, bases["pbwt_decode"])
+        launches["pbwt_decode"] = dec["launches"]
+        # A at 1 group on the tile, B and C at their phase-7 shapes, D on
+        # the whole cohort
+        times = {"count_codes": timing["by_shape"]["tile", 1], **rn["times"],
+                 "pbwt_decode": dec["times"]}
+        errs = {"count_codes": max(err3, timing["max_abs_err"]),
+                **rn["max_abs_err"], "pbwt_decode": dec["max_abs_err"]}
+
+    if n_cards >= 2 and all(c == (9, 0) for c in caps):
+        cards = cards_path(torch, n_cards, prefix, ref)
+        launches["count_codes"] += cards["launches"]
+        if args.cards:
+            times["count_codes"] = cards["times"]
+            errs["count_codes"] = cards["max_abs_err"]
+    else:
+        log(f"[cards] phase 13 (the mesh across cards) needs two or more "
+            f"Hopper cards; {n_cards} visible: not run")
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
         log(f"[main] {pkg} imported: no")
 
-    # A at 1 group on the tile, B and C at their phase-7 shapes, D on the
-    # whole cohort; no single PyTorch call computes a masked popcount (torch
-    # has no popcount op) or a PBWT decode, so there is no library time
-    times = {"count_codes": timing["by_shape"]["tile", 1], **rn["times"],
-             "pbwt_decode": dec["times"]}
-    errs = {"count_codes": max(err3, timing["max_abs_err"]),
-            **rn["max_abs_err"], "pbwt_decode": dec["max_abs_err"]}
+    # no single PyTorch call computes a masked popcount (torch has no
+    # popcount op) or a PBWT decode, so there is no library time
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name], "max_abs_err": errs[name],

@@ -458,6 +458,170 @@ def test_two_ranks_on_one_card(cuda, tmp_path, monkeypatch):
         assert res["launches"] == 1
 
 
+def _cards(n):
+    """cuda:0 .. cuda:n-1, or a skip where fewer cards are visible."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 8, 33])
+@pytest.mark.parametrize("words", MESH_WORDS)
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_mesh_bodies_across_cards(n_cards, words, groups):
+    """Every shard body with its slots on distinct cards against one card:
+    counts exact int32, codes and pairs exact uint8, every result on the
+    first card; kernel A runs once on each card; the sums and gathers are
+    peer copies (``COLLECTIVES["peer"]``), never a host copy."""
+    from bgt_tpu_torch.parallel import mesh
+    cards = _cards(n_cards)
+    rows = 301
+    p0, p1, masks = _inputs(rows, words, groups, seed=n_cards * 104729 + words
+                            + groups)
+    d = [counts.planes_to_torch(a, cards[0]) for a in (p0, p1, masks)]
+    one = counts.count_codes(*d)
+    codes = counts.decode_codes(d[0], d[1])
+    rows_idx = np.array([0, 5, rows - 1, 17, 17, 150])
+    want_pairs = (codes[rows_idx][:, 0::2] << 2) | codes[rows_idx][:, 1::2]
+
+    m = mesh.make_mesh(cards)
+    s0, s1, sm = mesh.shard_planes(m, p0, p1, masks)
+    assert [t.device for t in s0] == cards
+    mesh.reset_collectives()
+    counts.CARD_LAUNCHES.clear()
+    got = mesh.sharded_count_fn(m)(s0, s1, sm)
+    assert {k: v for k, v in counts.CARD_LAUNCHES.items()
+            if k[0] == "count_codes"} == {("count_codes", i): 1
+                                          for i in range(n_cards)}
+    assert got.device == cards[0] and torch.equal(got, one)
+    got = mesh.sharded_count_range_fn(m)(s0, s1, sm, 17, 250)
+    assert torch.equal(got, one[17:267])
+    pairs = mesh.sharded_pairs_rows_fn(m)(s0, s1, rows_idx)
+    assert torch.equal(pairs[:, : words * 16], want_pairs)
+    gathered = mesh.sharded_gather_codes_fn(m)(s0, s1)
+    assert torch.equal(gathered[:, : words * 32], codes)
+    peer = mesh.COLLECTIVES["peer"]
+    assert peer["all_reduce"]["calls"] == 2 and peer["all_gather"]["calls"] == 2
+
+    m2 = mesh.make_mesh2(2, cards)
+    q0, q1, qm = mesh.shard_planes2(m2, p0, p1, masks)
+    blocks = mesh.sharded_count2_fn(m2)(q0, q1, qm)
+    assert torch.equal(torch.cat([b.to(cards[0]) for b in blocks])[:rows], one)
+    pairs2 = mesh.sharded_pairs_rows2_fn(m2)(q0, q1, rows_idx)
+    assert pairs2.device == cards[0]
+    assert torch.equal(pairs2[:, : words * 16], want_pairs)
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+
+
+_NCCL_RANK = r"""
+import io, json, os, sys
+rank, n, port, db, repo = sys.argv[1:6]
+sys.path.insert(0, repo)
+import torch
+from bgt_tpu_torch.parallel import distributed, mesh
+distributed.initialize("127.0.0.1:" + port, int(n), int(rank), timeout_s=120,
+                       device="cuda")
+from bgt_tpu_torch.ops import counts
+from bgt_tpu_torch.query import fastpath
+from bgt_tpu_torch.query.view import main_view
+os.environ["BGT_TPU_COUNT_TIER"] = "device"
+out = {}
+for name, args in (("subset", ["-G", "-C", "-s", 'population=="CEU"']),
+                   ("gt", ["-C", "-s", ",S0001,S0003,S0004"])):
+    fastpath._COUNT_MEMO.clear()
+    buf = io.StringIO()
+    assert main_view(args + [db], out=buf, device="cuda") == 0
+    out[name] = buf.getvalue()
+ctx = fastpath.get_shard_context(torch.device("cuda"))
+assert ctx is not None and ctx.multi_process
+print(json.dumps({"out": out, "backend": distributed.collective_backend(),
+                  "slots": [str(d) for d in ctx.mesh.slots],
+                  "cards": {str(k[1]): v for k, v in counts.CARD_LAUNCHES.items()},
+                  "collectives": mesh.COLLECTIVES}))
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("layout", ["4x1", "2x2"])
+def test_nccl_ranks_across_cards(tmp_path, monkeypatch, layout):
+    """Four ranks of one card each (LOCAL_RANK), or two of two cards each
+    (CUDA_VISIBLE_DEVICES), each opening only its shard file: every rank
+    chose NCCL, made no gloo collective, ran kernel A once on each of its
+    cards per counted query, and wrote the port's host-tier bytes for the
+    subset and GT queries."""
+    import io
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from bgt_tpu_torch import testing
+    from bgt_tpu_torch.ops import _kernels
+    from bgt_tpu_torch.query import importer
+    from bgt_tpu_torch.query.view import main_view
+
+    _cards(4)
+    n_ranks, per = (4, 1) if layout == "4x1" else (2, 2)
+    (tmp_path / "in.vcf").write_text(
+        testing.random_vcf(n_samples=300, n_sites=200, seed=11))
+    db = str(tmp_path / "db")
+    importer.import_vcf(db, [str(tmp_path / "in.vcf")], is_vcf=True)
+    (tmp_path / "db.spl").write_text(testing.random_spl(300, seed=11))
+    monkeypatch.setenv("BGT_TPU_COUNT_TIER", "host")
+    want = {}
+    for name, args in (("subset", ["-G", "-C", "-s", 'population=="CEU"']),
+                       ("gt", ["-C", "-s", ",S0001,S0003,S0004"])):
+        fastpath._COUNT_MEMO.clear()
+        buf = io.StringIO()
+        assert main_view(args + [db], out=buf, device="cuda:0") == 0
+        want[name] = buf.getvalue()
+    TileStore.emit_shards(db, n_ranks, 4)
+    _kernels.library()  # built once, before the ranks load it
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BGT_TPU_", "MASTER_")) and k != "LOCAL_RANK"}
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = vis.split(",") if vis else [str(i) for i in range(4)]
+    repo = str(Path(__file__).resolve().parent.parent)
+    procs = []
+    for r in range(n_ranks):
+        mine = ({"LOCAL_RANK": str(r)} if per == 1 else
+                {"CUDA_VISIBLE_DEVICES": ",".join(ids[r * per:(r + 1) * per])})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _NCCL_RANK, str(r), str(n_ranks), port, db,
+             repo], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env={**env, **mine, "BGT_TPU_TILE_SHARD": f"{r}:{n_ranks}",
+                 "NCCL_DEBUG": "WARN"}))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err.decode()[-3000:]
+            outs.append(json.loads(out.decode().strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, res in enumerate(outs):
+        assert res["out"] == want and want["subset"].count("\n") > 100
+        assert res["backend"] == "nccl"
+        assert res["slots"] == ([f"cuda:{r}"] if per == 1
+                                else [f"cuda:{i}" for i in range(per)])
+        # the subset and the GT query's subset counts: once a card each
+        assert res["cards"] == {s[5:]: 2 for s in res["slots"]}
+        assert not any(v["calls"] for v in res["collectives"]["gloo"].values())
+        assert res["collectives"]["nccl"]["all_reduce"]["calls"] >= 2
+        assert res["collectives"]["nccl"]["all_gather"]["calls"] >= 1
+        if per > 1:
+            assert res["collectives"]["peer"]["all_reduce"]["calls"] >= 2
+
+
 # kernel D's edge shapes: haplotypes (1 run a row; words of 32 and a ragged
 # last word; rows of more runs than the block's 1,024 threads at HRC width)
 # and rows per block (none, one, ragged)

@@ -2,7 +2,9 @@
 
 The port's mesh runs on slots of the CPU device (``BGT_TPU_MESH_DEVICES``
 or an explicit slot list), its cross-process collectives on gloo; bgt_tpu's
-runs on the 8 virtual JAX-CPU devices of ``tests/conftest.py``.  The same
+runs on the 8 virtual JAX-CPU devices of ``tests/conftest.py``.  The rules
+that need cards (which slots ``cuda`` names, the NCCL transport, the dry
+run's distinct cards) run against faked card counts, UUIDs and collectives.  The same
 numpy-seeded inputs go through both, and counts (int32), pairs and codes
 (uint8) and ``view`` output bytes must be equal.  On the CPU every slot's
 local count is kernel A's plain version.
@@ -216,6 +218,224 @@ def test_local_slots(monkeypatch, env, slots):
     else:
         monkeypatch.setenv("BGT_TPU_MESH_DEVICES", env)
     assert mesh.local_slots("cpu") == [CPU] * slots
+
+
+def _fake_cards(monkeypatch, n_cards, group_world=None):
+    """``n_cards`` visible CUDA devices, and a process group of
+    ``group_world`` ranks (None: no group), for the slot rules alone."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    monkeypatch.setattr(torch.distributed, "is_initialized",
+                        lambda: group_world is not None)
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: group_world or 1)
+
+
+CUDA = [torch.device("cuda", i) for i in range(4)]
+# (device, BGT_TPU_MESH_DEVICES, LOCAL_RANK, process group size) -> slots
+SLOT_CASES = [
+    ("cuda:1", None, None, None, CUDA[1:2]),
+    ("cuda:3", None, "0", 2, CUDA[3:4]),
+    ("cuda", None, None, None, CUDA),
+    (None, None, None, None, CUDA),
+    ("cuda", None, "2", 4, CUDA[2:3]),
+    ("cuda", None, "0", 4, CUDA[0:1]),
+    ("cuda", None, None, 4, CUDA),            # a group, no torchrun
+    ("cuda", None, "2", None, CUDA),          # LOCAL_RANK but no group
+    ("cuda", "2", "1", 4, [torch.device("cuda")] * 2),
+    ("cuda:1", "3", None, None, CUDA[1:2] * 3),
+    ("cpu", None, "1", 2, [CPU]),
+]
+
+
+@pytest.mark.parametrize("device,env,local,group,want", SLOT_CASES,
+                         ids=[f"{c[0]}-mesh{c[1]}-local{c[2]}-group{c[3]}"
+                              for c in SLOT_CASES])
+def test_local_slots_cards(monkeypatch, device, env, local, group, want):
+    """``cuda:k`` is that card, bare ``cuda`` every visible card or, in a
+    process group under torchrun, ``cuda:$LOCAL_RANK``;
+    BGT_TPU_MESH_DEVICES=N is N slots on the device as given (4 cards
+    faked)."""
+    _fake_cards(monkeypatch, 4, group)
+    for k, v in (("BGT_TPU_MESH_DEVICES", env), ("LOCAL_RANK", local)):
+        if v is None:
+            monkeypatch.delenv(k, raising=False)
+        else:
+            monkeypatch.setenv(k, v)
+    assert mesh.local_slots(device) == want
+
+
+def test_local_slots_refuses_missing_card(monkeypatch):
+    _fake_cards(monkeypatch, 2, 4)
+    monkeypatch.delenv("BGT_TPU_MESH_DEVICES", raising=False)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    with pytest.raises(ValueError, match="LOCAL_RANK=3"):
+        mesh.local_slots("cuda")
+
+
+# the ranks' cards by UUID (None: a rank off CUDA) -> the mesh's transport
+TRANSPORT_CASES = [
+    ([["a"], ["b"], ["c"], ["d"]], "nccl"),   # one card a rank
+    ([["a", "b"], ["c", "d"]], "nccl"),       # two ranks of two cards
+    ([["a", "a"], ["b", "b"]], "nccl"),       # slots of a rank share a card
+    ([["a"], ["a"]], "gloo"),                 # two ranks on one card
+    ([["a", "b"], ["b", "c"]], "gloo"),       # one card in two ranks
+    ([["a"], ["b"], ["a"]], "gloo"),
+    ([["a"], None], "gloo"),                  # a CPU rank
+    ([None, None], "gloo"),
+]
+
+
+@pytest.mark.parametrize("layouts,want", TRANSPORT_CASES,
+                         ids=[str(c[0]) for c in TRANSPORT_CASES])
+def test_transport_for_layout(layouts, want):
+    assert distributed.transport_for(layouts) == want
+
+
+@pytest.fixture
+def fake_group(monkeypatch):
+    """A process group of two ranks, this one rank 0, faked around
+    ``distributed``'s transport choice: the other rank's card UUIDs are
+    ``other["cards"]``, this rank's ``["card-0"]``; ``made`` records each
+    new_group call and ``reduced`` each all_reduce."""
+    state = {"cards": ["card-1"], "made": [], "reduced": []}
+    monkeypatch.setattr(distributed, "_STATE",
+                        {"backend": None, "group": None, "cards": None})
+    monkeypatch.setattr(distributed.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed.dist, "get_world_size",
+                        lambda group=None: 2)
+    monkeypatch.setattr(distributed.dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(distributed, "_card_uuids", lambda slots: ["card-0"])
+
+    def gather(out, mine):
+        out[:] = [mine, state["cards"]]
+
+    def new_group(**kw):
+        state["made"].append(kw)
+        if state.get("refuse"):
+            raise RuntimeError("NCCL refused")
+        return "nccl-group"
+
+    def all_reduce(t, group=None):
+        state["reduced"].append((t.device, group))
+        t.mul_(2)
+
+    monkeypatch.setattr(distributed.dist, "all_gather_object", gather)
+    monkeypatch.setattr(distributed.dist, "new_group", new_group)
+    monkeypatch.setattr(distributed.dist, "all_reduce", all_reduce)
+    return state
+
+
+@pytest.mark.parametrize("other,want", [(["card-1"], "nccl"),
+                                        (["card-0"], "gloo"),
+                                        (None, "gloo")],
+                         ids=["distinct", "shared", "cpu-rank"])
+def test_initialize_chooses_transport(fake_group, other, want):
+    """The choice is made once at join from the gathered cards: an NCCL
+    group (and one probe sum on it) only where no card is shared and every
+    rank is on CUDA; ``collective_backend`` reports it."""
+    fake_group["cards"] = other
+    distributed.initialize(device="cpu")
+    assert distributed.collective_backend() == want
+    assert len(fake_group["made"]) == (want == "nccl")
+    if want == "nccl":
+        assert fake_group["made"][0]["backend"] == "nccl"
+        assert fake_group["reduced"] == [(CPU, "nccl-group")]
+    distributed.initialize(device="cpu")  # chosen already: nothing more
+    assert len(fake_group["made"]) == (want == "nccl")
+
+
+def test_initialize_never_falls_back_to_gloo(fake_group):
+    fake_group["refuse"] = True
+    with pytest.raises(RuntimeError, match="NCCL refused"):
+        distributed.initialize(device="cpu")
+    assert distributed._STATE["backend"] is None
+
+
+def test_global_mesh_takes_the_transport(fake_group, monkeypatch):
+    """``global_mesh`` hands the mesh the transport and group chosen at
+    join, and refuses slots other than the cards NCCL was set up for."""
+    monkeypatch.delenv("BGT_TPU_MESH_DEVICES", raising=False)
+    distributed.initialize(device="cpu")
+
+    def gather(out, mine):
+        for t in out:
+            t.copy_(mine)
+
+    monkeypatch.setattr(distributed.dist, "all_gather", gather)
+    m = distributed.global_mesh(device="cpu")
+    assert (m.transport, m.group, m.world, m.size) == ("nccl", "nccl-group",
+                                                       2, 2)
+    monkeypatch.setenv("BGT_TPU_MESH_DEVICES", "2")
+    with pytest.raises(ValueError, match="NCCL was set up"):
+        distributed.global_mesh(device="cpu")
+
+
+@pytest.fixture
+def nccl_calls(monkeypatch):
+    """torch.distributed's NCCL collectives faked as a world of 2: what
+    each received (its devices), rank 1 holding this rank's values + 100."""
+    seen = []
+
+    def all_reduce(t, group=None):
+        seen.append(("all_reduce", t.device, group))
+        if t.device.type != "meta":
+            t.mul_(2).add_(100)
+
+    def all_gather_into_tensor(out, t, group=None):
+        seen.append(("all_gather", t.device, out.device, group))
+        if t.device.type != "meta":
+            out[0].copy_(t)
+            out[1].copy_(t + 100)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    monkeypatch.setattr(torch.distributed, "all_gather_into_tensor",
+                        all_gather_into_tensor)
+    mesh.reset_collectives()
+    yield seen
+    mesh.reset_collectives()
+
+
+def test_nccl_layout_makes_no_host_copy(nccl_calls):
+    """On the NCCL layout ``psum``/``all_gather_cols`` hand the first
+    slot's tensor itself to the collective: slots on the meta device,
+    which cannot be copied to the host, go through, and the results stay
+    there."""
+    meta = torch.device("meta")
+    m = mesh.Mesh(("s",), (4,), [meta, meta], rank=0, world=2,
+                  transport="nccl", group="g")
+    local = [torch.empty((5, 3, 4), dtype=torch.int32, device=meta)] * 2
+    assert mesh.psum(m, local).device == meta
+    cols = [torch.empty((5, 7), dtype=torch.uint8, device=meta)] * 2
+    out = mesh.all_gather_cols(m, cols)
+    assert out.device == meta and out.shape == (5, 28)
+    assert nccl_calls == [("all_reduce", meta, "g"),
+                          ("all_gather", meta, meta, "g")]
+    nccl = mesh.COLLECTIVES["nccl"]
+    assert nccl["all_reduce"]["calls"] == nccl["all_gather"]["calls"] == 1
+    assert nccl["all_reduce"]["bytes"] == 5 * 3 * 4 * 4
+    assert nccl["all_gather"]["bytes"] == 2 * 5 * 14
+    assert not any(v["calls"] for t in ("gloo", "peer")
+                   for v in mesh.COLLECTIVES[t].values())
+
+
+def test_nccl_layout_values(nccl_calls):
+    """The NCCL branches' arithmetic on CPU tensors: the sum is this rank's
+    in-process sum through the all_reduce; the gathered columns are rank 0's
+    then rank 1's."""
+    m = mesh.Mesh(("s",), (4,), [CPU, CPU], rank=0, world=2,
+                  transport="nccl")
+    rng = np.random.default_rng(4)
+    local = [torch.as_tensor(rng.integers(0, 50, (6, 2, 4), dtype=np.int32))
+             for _ in range(2)]
+    got = mesh.psum(m, local)
+    np.testing.assert_array_equal(_np(got), 2 * (_np(local[0])
+                                                 + _np(local[1])) + 100)
+    cols = [torch.as_tensor(rng.integers(0, 16, (6, c), dtype=np.uint8))
+            for c in (3, 5)]
+    got = _np(mesh.all_gather_cols(m, cols))
+    mine = np.concatenate([_np(c) for c in cols], axis=1)
+    np.testing.assert_array_equal(got, np.concatenate([mine, mine + 100],
+                                                      axis=1))
 
 
 # --- the query path on an in-process mesh ----------------------------------
@@ -579,6 +799,23 @@ def test_dryrun_multichip_matches_bgt_tpu(n):
     np.testing.assert_array_equal(got["pairs2"], np.asarray(
         jax_mesh.sharded_pairs_rows2_fn(jm2)(j0, j1, jnp.asarray(rows))))
     np.testing.assert_array_equal(got["counts2"], want)
+
+
+@pytest.mark.parametrize("n,have", [(4, 1), (16, 8)])
+def test_dryrun_multichip_needs_n_cards(monkeypatch, n, have):
+    """With no device the dry run spans n distinct cards, and fewer raise
+    bgt_tpu's message (its dry run on the 8 JAX-CPU devices, for 16)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: have)
+    with pytest.raises(AssertionError,
+                       match=f"need {n} devices, have {have}"):
+        entry.dryrun_multichip(n)
+    if have == len(jax.devices()):
+        sys.path.insert(0, str(REPO))
+        import __graft_entry__
+        with pytest.raises(AssertionError,
+                           match=f"need {n} devices, have {have}"):
+            __graft_entry__.dryrun_multichip(n)
 
 
 # tests/test_kexpr.py's vector cases, and the operators they leave out
