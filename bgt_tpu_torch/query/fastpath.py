@@ -323,6 +323,19 @@ _BUILD_LOCKS: dict = {}
 _COUNT_MEMO: dict = {}
 _COUNT_MEMO_BYTES = 512 << 20
 
+# count passes by the tier that answered them (``DbCtx.counts_for``): the
+# all-columns ``rowstats``, the ``memo``, the ``host`` popcount, the kernel
+# on resident planes (``device``), streamed row chunks (``stream``) or the
+# ``mesh``; the bench reads which tier answered each query
+TIERS = dict.fromkeys(("rowstats", "memo", "host", "device", "stream",
+                       "mesh"), 0)
+_TIERS_LOCK = threading.Lock()
+
+
+def _answered(tier: str) -> None:
+    with _TIERS_LOCK:
+        TIERS[tier] += 1
+
 
 def _cache_key(bf: engine.BgtFile):
     import os
@@ -1055,10 +1068,12 @@ class DbCtx:
         ts = self.ts
         if (masks.shape[0] == 1 and ts.rowstats is not None
                 and masks[0].tobytes() == ts.all_mask().tobytes()):
+            _answered("rowstats")
             return ts.rowstats[rows][:, None, :]
         memo_key = ((_cache_key(self.bf), str(self.device)), masks.tobytes())
         hit = _COUNT_MEMO.get(memo_key)
         if hit is not None:
+            _answered("memo")
             return hit[rows]
         memo_ok = ts.n_rows * masks.shape[0] * 16 <= _COUNT_MEMO_BYTES
         span = int(rows[-1]) + 1 - int(rows[0])
@@ -1069,8 +1084,10 @@ class DbCtx:
                                  "mesh path for subset counts")
             start = int(rows[0])
             counts = sharding.executor(self).count_range(masks, start, span)
+            _answered("mesh")
             return counts[rows - start]
         if self._count_tier(rows, masks, memo_ok) == "host":
+            _answered("host")
             # the same host tier as bgt_tpu (fastpath.py:1033-1055), with
             # this package's memo
             memo_budget = int(os.environ.get("BGT_TPU_MEMO_WORK_MAX", 8 << 30))
@@ -1098,10 +1115,13 @@ class DbCtx:
             sharding = None
         if sharding is not None:
             counts = sharding.executor(self).count_range(masks, start, length)
+            _answered("mesh")
         else:
             dt = get_device_tiles(self.bf, self.device)
             if dt is None:  # planes exceed the device budget: stream chunks
+                _answered("stream")
                 return stream_counts(ts, rows, masks, self.device)
+            _answered("device")
             dm = counts_ops.planes_to_torch(masks, self.device)
             counts = counts_ops.counts_to_numpy(counts_ops.count_codes_range(
                 dt.p0, dt.p1, dm, start, length))

@@ -3,8 +3,10 @@
 The port's copy of the generators of ``bgt_tpu/testing.py`` that its tests
 and ``chip_smoke.py`` use: random cohort VCFs with the structural features
 of real data (multi-allelics, indels, missing genotypes, phased diploid GT),
-their ``.spl`` sample metadata, and the LD-structured genotyped BCF of the
-HRC-shaped cohort.  The same seeds give the same bytes as ``bgt_tpu``'s.
+the bench's cohorts (``cohort_vcf``, and ``cohort_vcf_to_file`` streamed at
+HRC width), BCF input made from VCF text (``vcf_text_to_bcf``, through the
+port's own ``formats/bcf.py`` and ``io/bgzf.py``), their ``.spl`` sample
+metadata, and the LD-structured genotyped BCF of the HRC-shaped cohort.  The same seeds give the same bytes as ``bgt_tpu``'s.
 """
 
 from __future__ import annotations
@@ -177,6 +179,101 @@ def cohort_vcf(
         lines.append(f"{chrom}\t{pos}\t.\t{ref}\t{','.join(alts)}\t100\tPASS\t.\tGT\t"
                      + gt_str)
     return "\n".join(lines) + "\n"
+
+
+def cohort_vcf_to_file(path: str,
+                       n_samples: int = 32488,
+                       n_sites: int = 30000,
+                       seed: int = 0,
+                       chrom: str = "11",
+                       chrom_len: int = 135006516,
+                       n_founders: int = 64,
+                       switch_rate: float = 0.002,
+                       p_multi: float = 0.1,
+                       p_indel: float = 0.15,
+                       p_missing: float = 0.002,
+                       chunk_sites: int = 2000) -> None:
+    """HRC-scale LD-structured cohort streamed to ``path`` in site chunks.
+
+    Same generative model as :func:`cohort_vcf` (founder-mosaic haplotypes)
+    but chunked so tens of thousands of samples never materialize a
+    multi-GB string or a (sites, haps) int32 path matrix at once.
+    """
+    rng = np.random.default_rng(seed)
+    n_hap = 2 * n_samples
+    samples = [f"S{i:05d}" for i in range(n_samples)]
+    positions = np.sort(rng.choice(
+        np.arange(10_000, chrom_len - 10_000), size=n_sites, replace=False))
+    cur = rng.integers(0, n_founders, n_hap).astype(np.int32)
+    cells = np.empty((n_samples, 4), dtype=np.uint8)
+    cells[:, 1] = ord("|")
+    cells[:, 3] = ord("\t")
+    with open(path, "w") as fp:
+        fp.write("##fileformat=VCFv4.1\n"
+                 '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+                 f"##contig=<ID={chrom},length={chrom_len}>\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(samples) + "\n")
+        for lo in range(0, n_sites, chunk_sites):
+            hi = min(lo + chunk_sites, n_sites)
+            k = hi - lo
+            freqs = rng.beta(0.2, 0.8, size=k)
+            founder = (rng.random((k, n_founders))
+                       < freqs[:, None]).astype(np.uint8)
+            switches = rng.random((k, n_hap)) < switch_rate
+            jumps = rng.integers(0, n_founders, (k, n_hap)).astype(np.int32)
+            lines = []
+            for i in range(k):
+                if lo + i > 0:
+                    cur = np.where(switches[i], jumps[i], cur)
+                g = founder[i][cur]
+                miss = rng.random(n_hap) < p_missing
+                pos = int(positions[lo + i])
+                is_indel = rng.random() < p_indel
+                if is_indel:
+                    rl = int(rng.integers(2, 5))
+                    ref = "".join(BASES[j] for j in rng.integers(0, 4, rl))
+                    alt = ref[0]
+                else:
+                    r = int(rng.integers(0, 4))
+                    ref = BASES[r]
+                    alt = BASES[(r + 1 + int(rng.integers(0, 3))) % 4]
+                    if alt == ref:
+                        alt = BASES[(r + 1) % 4]
+                alts = [alt]
+                row = g + ord("0")
+                if rng.random() < p_multi and not is_indel:
+                    a2 = BASES[(BASES.index(ref) + 2) % 4]
+                    if a2 not in (ref, alt):
+                        alts.append(a2)
+                        promote = (g == 1) & (rng.random(n_hap) < 0.3)
+                        row = np.where(promote, ord("2"), row).astype(np.uint8)
+                row = np.where(miss, ord("."), row).astype(np.uint8)
+                cells[:, 0] = row[0::2]
+                cells[:, 2] = row[1::2]
+                gt_str = cells.tobytes()[:-1].decode("latin-1")
+                lines.append(
+                    f"{chrom}\t{pos}\t.\t{ref}\t{','.join(alts)}\t100\tPASS"
+                    f"\t.\tGT\t" + gt_str)
+            fp.write("\n".join(lines) + "\n")
+
+
+def vcf_text_to_bcf(vcf_text: str, out_path: str) -> None:
+    """Convert VCF text to a BCF2 file (for BCF-input import tests)."""
+    from .formats import bcf as bcflib
+    from .io.bgzf import BgzfWriter
+
+    lines = vcf_text.splitlines()
+    hdr_lines = [l for l in lines if l.startswith("#")]
+    h = bcflib.BcfHeader.from_text("\n".join(hdr_lines))
+    with BgzfWriter(out_path) as out:
+        h.write_bcf(out)
+        b = bcflib.Bcf1()
+        for line in lines:
+            if line.startswith("#") or not line:
+                continue
+            bcflib.vcf_parse1(line, h, b)
+            b.write(out)
 
 
 def random_spl(n_samples: int, seed: int = 0, sample_prefix: str = "S",

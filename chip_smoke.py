@@ -5,11 +5,13 @@
     python3 chip_smoke.py --cards N
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``; exits
-non-zero, printing no result, without them.  Phases 1-12 run on cuda:0 and
-behave the same on a host of several cards; phase 13 runs where two or more
-Hopper cards are visible, and is logged as not run on one.  ``--cards N``
-makes phase 13 mandatory (fewer than N cards: exit non-zero, no result) and
-skips phases 3-12 (the preflight, the build and the cohort stay).  It imports nothing of JAX and
+non-zero, printing no result, without them.  Phases 1-12 and 14 run on
+cuda:0 and behave the same on a host of several cards; phase 13 runs where
+two or more Hopper cards are visible, and is logged as not run on one.
+``--cards N`` makes phase 13 mandatory (fewer than N cards: exit non-zero,
+no result), skips phases 3-12 (the preflight, the build and the cohort
+stay) and runs phase 14's scaling and multi-process steps across the N
+cards.  It imports nothing of JAX and
 nothing of ``bgt_tpu``: the cohort is made and imported by the port's own
 ``testing`` and ``importer``, and every device-tier output is held against
 the port's own host tier (``BGT_TPU_COUNT_TIER=host``: the same code as
@@ -120,10 +122,23 @@ each fatal on failure:
    the host sum of every card's counts (and each rank's md5 against it),
    each card's A beside its bytes bound, the sum beside its NVLink ring
    bound and the whole call.  Every md5 must equal the host tier's, and
-   kernel A must launch once on each card of each counted query.
+   kernel A must launch once on each card of each counted query;
+14. the port's measurement tools (``bgt_tpu_torch/tools/``): (a)
+   ``bench.run`` on 1kg11 at its full size (2,504 samples x 100,000 sites),
+   without the HRC-scale block, the card tests or the scaling: every
+   query's md5 must equal its pin (``bgt_tpu``'s, ``tools/bench_pins.json``)
+   and the port's host tier, the import's files their pins, and the
+   subset's device step and the eight groups must launch kernel A; its
+   times, tiers, launches and kernel A on the 1kg11 tile are printed with
+   its JSON; (b) the soak (``tools/soak.py``) for 120 s on cuda:0 against
+   the host tier, no divergence; (c) ``bench_scaling`` over the visible
+   cards (on one, its one-card steps; the rest recorded as not run), every
+   count exact against the host popcount; (d) ``bench_multiprocess`` with
+   2 gloo ranks on cuda:0.  With ``--cards N`` only (c) over the N cards
+   and (d) N NCCL ranks.
 
 The line before the last is a JSON object with each kernel's launches on its
-path (kernel A's: phases 5-6, 11 and 13; D's: phase 12), its largest
+path (kernel A's: phases 5-6, 11, 13 and 14; D's: phase 12), its largest
 difference from the plain version, its times and its bound (with
 ``--cards``: A's on phase 13's tile, and no numbers for B, C and D); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -156,7 +171,7 @@ KERNELS = {
                            "docs/experiments/pallas_count.py:29"),  # _count_kernel
     # decode_block: an XLA lax.scan, not a Pallas kernel
     "pbwt_decode": ("bgt_tpu_torch/csrc/pbwt_decode.cu",
-                    "bgt_tpu/ops/decode.py:63"),
+                    "bgt_tpu/ops/decode.py:64"),
 }
 HBM_PEAK_GBS = 3350.0  # H100 SXM data sheet, at a 700 W power limit
 
@@ -2044,6 +2059,122 @@ def decode_path(torch, device, prefix: str, bases=None) -> dict:
             "times": (d_ms, plain_ms, bound, "bytes")}
 
 
+# phase 14: the port's measurement tools on the card; the bench's hrc
+# configuration and its HRC-scale block run in the bench's own call
+TOOLS_BENCH = ("1kg11",)
+SOAK_SECONDS = 120
+
+
+def tools_path(torch, n: int, across: bool) -> int:
+    """Phase 14, the port's measurement tools (``bgt_tpu_torch/tools/``) on
+    the card: (a) ``bench.run`` on 1kg11 at its full size (no HRC-scale
+    block, no card tests, no scaling), every query gated on the pins and
+    the host tier, the subset's device step and the eight groups launching
+    kernel A; (b) the soak for SOAK_SECONDS on cuda:0 against the host
+    tier; (c) ``bench_scaling`` over the visible cards (on one card its
+    one-card steps, the others recorded as not run); (d)
+    ``bench_multiprocess`` with 2 gloo ranks on cuda:0.  With ``across``
+    (``--cards n``) only (c) and (d) n NCCL ranks, one card each.  Returns kernel A's launches on the path:
+    the bench's counted queries, each read around its query, and the
+    soak's and the scaling's in this process, each counted from 0."""
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.tools import (bench, bench_multiprocess,
+                                     bench_scaling, soak)
+    from bgt_tpu_torch.tools.measure import describe
+
+    set_env(**dict.fromkeys(MESH_ENV + ("BGT_TPU_HBM_BUDGET",), None))
+    launches = 0
+    if not across:
+        device = torch.device("cuda", 0)
+        card = ", ".join(str(x) for x in describe(device))
+        cfgs = {k: bench.CONFIGS[k] for k in TOOLS_BENCH}
+        t0 = time.perf_counter()
+        res = bench.run(cfgs, device, json.loads(bench.PINS_PATH.read_text()),
+                        full=False, device_tests=False, scaling=False)
+        ex = res["extra"]
+        for name in cfgs:
+            e = ex[name]
+            for step in ("subset_device", "groups8"):
+                if e["launches"][step] < 1:
+                    raise AssertionError(f"bench {name} {step}: kernel A "
+                                         "did not run")
+            log(f"[tools] bench {name} ({e['shape']}, {e['n_rows']} rows), "
+                f"every md5 equal to its pin and the host tier: -G -C warm "
+                f"{e['gc_warm_s']:.4f} s ({e['tiers']['gc_warm_0']}), cold "
+                f"{e['gc_cold_s']:.3f} s (CUDA context "
+                f"{e['cold']['cuda_context']}); subset cold "
+                f"{e['subset_cold_s']:.3f} s (A +"
+                f"{e['subset_cold']['launches']}), first "
+                f"{e['subset_first_s']:.4f} s ({e['tiers']['subset_first']}, "
+                f"A +{e['launches']['subset_first']}), memoized "
+                f"{e['subset_repeat_s']:.4f} s, device "
+                f"{e['subset_device_s']:.4f} s (A "
+                f"+{e['launches']['subset_device']}); eight groups "
+                f"{e['groups8_s']:.4f} s (A +{e['launches']['groups8']}); "
+                f"-S/-H {e['alcnt_ours_s']:.3f} s; annotation "
+                f"{e.get('anno_ours_s', float('nan')):.3f} s; -b "
+                f"{e['bcf_ours_s']:.3f} s; -C {e['dump_ours_s']:.3f} s | "
+                f"{card}")
+        dk = ex["device_kernel"]
+        log(f"[tools] bench device block on {dk['tile']} ({dk['rows']} x "
+            f"{dk['words']}): A {dk['s_per_call_1mask_device'] * 1e3:.4f} / "
+            f"{dk['s_per_call_32mask_device'] * 1e3:.4f} ms at 1 / 32 masks, "
+            f"bound {dk['bound_ms_1mask']:.4f} / {dk['bound_ms_32mask']:.4f}"
+            f" ms, share {dk['share_1mask']:.3f} / {dk['share_32mask']:.3f}; "
+            f"proxy {dk['hbm_proxy_gbs']:.1f} GB/s | {card}")
+        path = sum(sum(ex[k]["launches"].values())
+                   for k in (*cfgs, "multidb"))
+        log(f"[tools] bench: {time.perf_counter() - t0:.1f} s, kernel A "
+            f"launches on its queries {path}")
+        log(f"[tools] bench json: {json.dumps(res)}")
+        launches += path
+
+        counts.LAUNCHES["count_codes"] = 0
+        if soak.run(SOAK_SECONDS, SEED, device) != 0:
+            raise AssertionError("the soak diverged from the host tier")
+        log(f"[tools] soak: kernel A launches "
+            f"{counts.LAUNCHES['count_codes']}")
+        if counts.LAUNCHES["count_codes"] < 1:
+            raise AssertionError("the soak launched no kernel A")
+        launches += counts.LAUNCHES["count_codes"]
+
+    counts.LAUNCHES["count_codes"] = 0
+    t0 = time.perf_counter()
+    sc = bench_scaling.run("cuda")
+    log(f"[tools] bench_scaling --device cuda: "
+        f"{time.perf_counter() - t0:.1f} s, kernel A launches "
+        f"{counts.LAUNCHES['count_codes']}")
+    launches += counts.LAUNCHES["count_codes"]
+    for block in ("dispatch_overhead_s", "strong_devices", "weak_devices"):
+        for k, e in sc[block].items():
+            if "not_run" not in e and not e["counts_exact"]:
+                raise AssertionError(f"scaling {block} {k}: counts differ")
+        log(f"[tools] scaling {block}: " + "; ".join(
+            f"{k}: " + (e["not_run"] if "not_run" in e else
+                        f"{e['s_per_iter'] * 1e3:.4f} ms"
+                        + (f", efficiency {e['efficiency']:.3f}"
+                           if "efficiency" in e else "")
+                        + (" (shared card)" if e["shared_card"] else ""))
+            for k, e in sc[block].items()))
+    log(f"[tools] scaling crossover: {json.dumps(sc['crossover'])}")
+    log(f"[tools] scaling 2x2: {json.dumps(sc['mesh2_2x2'])}")
+    for k, e in sc["processes"].items():
+        log(f"[tools] scaling processes {k}: " + (
+            e["not_run"] if "not_run" in e else
+            f"{e['line']}; one process of {k} slots "
+            f"{e['one_process_s'] * 1e3:.3f} ms/iter"))
+    log(f"[tools] scaling json: {json.dumps(sc)}")
+
+    mp = bench_multiprocess.run(n if across else 2,
+                                "cuda" if across else "cuda:0")
+    log(f"[tools] bench_multiprocess: {mp['line']}")
+    want = "nccl" if across else "gloo"
+    if mp["transport"] != want or not mp["counts_exact"]:
+        raise AssertionError(f"bench_multiprocess: transport "
+                             f"{mp['transport']}, not {want}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2168,6 +2299,7 @@ def main(argv=None) -> int:
     else:
         log(f"[cards] phase 13 (the mesh across cards) needs two or more "
             f"Hopper cards; {n_cards} visible: not run")
+    launches["count_codes"] += tools_path(torch, args.cards, bool(args.cards))
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")

@@ -816,3 +816,71 @@ def test_pbwt_decode_raises_without_its_library(cuda, monkeypatch):
     with pytest.raises(OSError, match="no kernel library"):
         decode.decode_block(S0, lens, torch.zeros_like(lens), 64)
     assert decode.LAUNCHES["pbwt_decode"] == before
+
+
+# --- the bench on the card (bgt_tpu_torch/tools/bench.py) ---------------------
+
+# the bench's tiles: 1kg11 (105,730 rows x 157 words) and hrc (31,716 x
+# 2,031), at the device block's 1 and 32 masks
+BENCH_TILES = [(105_730, 157, 1), (105_730, 157, 32), (31_716, 2031, 1),
+               (31_716, 2031, 32)]
+
+
+@pytest.mark.parametrize("rows,words,groups", BENCH_TILES,
+                         ids=[f"{r}x{w}x{g}" for r, w, g in BENCH_TILES])
+def test_bench_tile_kernel_matches_plain(cuda, rows, words, groups):
+    d = [counts.planes_to_torch(a, cuda)
+         for a in _inputs(rows, words, groups, seed=rows + groups)]
+    before = counts.LAUNCHES["count_codes"]
+    got = counts.count_codes(*d)
+    assert counts.LAUNCHES["count_codes"] == before + 1
+    assert torch.equal(got, counts.count_codes_reference(*d))
+
+
+def test_bench_run_on_card_gated_on_host_tier(cuda, tmp_path, monkeypatch):
+    """bench.run at small configurations on the card under ``auto``, its
+    pins taken from the port's host tier: every md5 equal, the subset's
+    device step and the eight groups launching kernel A, -G -C answered by
+    rowstats, and the device block's A exact on the widest tile."""
+    from bgt_tpu_torch.query import importer
+    from bgt_tpu_torch.tools import bench
+
+    cfgs = {"1kg11": dict(n_samples=40, n_sites=300, seed=1337,
+                          anno_rows=2000),
+            "hrc": dict(n_samples=400, n_sites=200, seed=2026)}
+    monkeypatch.delenv("BGT_TPU_COUNT_TIER", raising=False)
+    pins = {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        d = tmp_path / name
+        bench.ensure_db(tmp_path, name, cfg, i == 0)
+        bench.ensure_inputs(d, cfg, i == 0)
+        key = bench.cfg_key(name, cfg)
+        pins[key] = {"import": {e: bench.file_md5(d / f"ourdb{e}")
+                                for e in bench.IMPORT_EXTS},
+                     "views": {q: bench.host_md5(d, args, cuda)
+                               for q, args in bench.queries(i == 0).items()}}
+        if i == 0:  # the BCF-input import and the merge, as the bench runs
+            with open(d / "in_gt.bcf", "wb") as fp:
+                bench.view(d, ["-b", "-C"], cuda, sink=bench._FileSink(fp))
+            importer.import_vcf(str(d / "ourdb_b"), [str(d / "in_gt.bcf")])
+            pins[key]["import_bcf"] = {
+                ".pbf": bench.file_md5(d / "ourdb_b.pbf")}
+            md = tmp_path / "multidb"
+            md.mkdir()
+            bench.split_halves(d / "in.vcf", md, cfg["n_samples"])
+            for half in ("a", "b"):
+                importer.import_vcf(str(md / f"our_{half}"),
+                                    [str(md / f"{half}.vcf")], is_vcf=True)
+            pins["multidb:" + key] = {"views": {
+                q: bench.host_md5(md, args, cuda, ("our_a", "our_b"))
+                for q, args in bench.MULTIDB_QUERIES.items()}}
+    res = bench.run(cfgs, cuda, pins, bench_dir=tmp_path, full=False,
+                    device_tests=False, scaling=False)
+    ex = res["extra"]
+    for name in cfgs:
+        assert ex[name]["launches"]["subset_device"] >= 1
+        assert ex[name]["launches"]["groups8"] >= 1
+        assert set(ex[name]["tiers"]["gc_warm_0"]) == {"rowstats"}
+    dk = ex["device_kernel"]
+    assert dk["tile"] == "hrc" and dk["max_abs_err_32mask"] == 0
+    assert 0 < dk["share_1mask"] and res["device"]["power_limit"]

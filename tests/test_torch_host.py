@@ -5,7 +5,8 @@ and its copies write and print the same bytes as bgt_tpu's.
   no ``import`` names ``bgt_tpu`` (other than ``bgt_tpu_torch``) or ``jax``.
 - A fresh interpreter imports every module of the package (the mesh's
   ``parallel/mesh.py``, ``parallel/distributed.py`` and ``core/xp_torch.py``,
-  the PBWT scan's ``ops/decode.py`` and the ``misc/`` converters among them)
+  the PBWT scan's ``ops/decode.py``, the ``misc/`` converters and the
+  measurement tools of ``tools/`` among them)
   and finds neither ``bgt_tpu`` nor ``jax`` in ``sys.modules``.
 - ``bgt import`` of one VCF through each package: every file of the two
   databases is the same bytes.
@@ -66,7 +67,9 @@ for m in mods:
 named = {"bgt_tpu_torch.parallel.mesh", "bgt_tpu_torch.parallel.distributed",
          "bgt_tpu_torch.core.xp_torch", "bgt_tpu_torch.ops.decode",
          "bgt_tpu_torch.misc.pop2region", "bgt_tpu_torch.misc.sgdp2fmf",
-         "bgt_tpu_torch.misc.vep2sql"}
+         "bgt_tpu_torch.misc.vep2sql", "bgt_tpu_torch.tools.bench",
+         "bgt_tpu_torch.tools.soak", "bgt_tpu_torch.tools.bench_scaling",
+         "bgt_tpu_torch.tools.bench_multiprocess"}
 assert named <= set(mods), sorted(named - set(mods))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("bgt_tpu", "jax", "jaxlib"))
