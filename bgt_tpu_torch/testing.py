@@ -7,6 +7,8 @@ the bench's cohorts (``cohort_vcf``, and ``cohort_vcf_to_file`` streamed at
 HRC width), BCF input made from VCF text (``vcf_text_to_bcf``, through the
 port's own ``formats/bcf.py`` and ``io/bgzf.py``), their ``.spl`` sample
 metadata, and the LD-structured genotyped BCF of the HRC-shaped cohort.  The same seeds give the same bytes as ``bgt_tpu``'s.
+``synth_gt_bcf_sparse_to_file``, the same cohort model with its rare events
+drawn as hits only, is the port's own: it makes the HRC-scale bench block.
 """
 
 from __future__ import annotations
@@ -380,6 +382,135 @@ def synth_gt_bcf_to_file(path: str,
                 print(f"[synth] {hi}/{n_sites} sites", file=sys.stderr,
                       flush=True)
         out.close()
+
+
+def _bernoulli_hits(rng, p: float, n: int) -> np.ndarray:
+    """Sorted indices of the successes in ``n`` Bernoulli(p) trials, drawn
+    as geometric gaps between them: the same process as ``rng.random(n) <
+    p`` in O(n p) draws."""
+    if p <= 0.0 or n == 0:
+        return np.zeros(0, dtype=np.int64)
+    batch = int(n * p + 6.0 * (n * p) ** 0.5) + 16
+    parts, last = [], -1
+    while last < n:
+        hits = last + np.cumsum(rng.geometric(p, batch))
+        parts.append(hits)
+        last = int(hits[-1])
+    hits = np.concatenate(parts)
+    return hits[:np.searchsorted(hits, n)]
+
+
+def synth_gt_bcf_sparse_to_file(path: str,
+                                n_samples: int,
+                                n_sites: int,
+                                seed: int = 0,
+                                chrom: str = "11",
+                                chrom_len: int = 135006516,
+                                n_founders: int = 64,
+                                switch_rate: float = 0.002,
+                                p_missing: float = 0.002,
+                                chunk_sites: int = 2048,
+                                log_every: int = 0) -> dict:
+    """:func:`synth_gt_bcf_to_file`'s cohort model and BCF, with the rare
+    events drawn as hits only: the switches and the missing codes of each
+    chunk are the successes of Bernoulli trials over its ``k x n_hap``
+    cells, placed by geometric gaps (:func:`_bernoulli_hits`), with one jump
+    founder drawn per switch.  That is the same distribution for
+    O(k n_hap p) draws where the dense form draws three ``(k, n_hap)``
+    arrays; the random stream differs, so the bytes do too.
+
+    Returns the seconds spent in each stage: ``draws``, ``mosaic`` (the
+    founder walk), ``tiles`` (``TileStore.from_codes``), ``emit`` (the
+    native record emitter) and ``write`` (into the BGZF writer, whose
+    deflate threads it waits on)."""
+    import os
+    import sys
+    import time
+
+    from . import native
+    from .formats import bcf as bcflib
+    from .io.bgzf import BgzfWriter
+    from .ops.tiles import TileStore
+
+    if native.get_lib() is None:
+        raise RuntimeError("synth_gt_bcf_sparse_to_file needs the native "
+                           "library")
+    rng = np.random.default_rng(seed)
+    n_hap = 2 * n_samples
+    samples = [f"S{i:05d}" for i in range(n_samples)]
+    text = ("##fileformat=VCFv4.1\n"
+            '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+            f"##contig=<ID={chrom},length={chrom_len}>\n"
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+            + "\t".join(samples) + "\n")
+    h = bcflib.BcfHeader.from_text(text)
+    gt_id = h.id2int(bcflib.BCF_DT_ID, "GT")
+    assert gt_id >= 0
+
+    span = chrom_len - 20_000
+    max_gap = max(2, 3 * span // (2 * n_sites))
+    pos = 10_000 + np.cumsum(rng.integers(1, max_gap, n_sites))
+    assert int(pos[-1]) < chrom_len, "positions overflow the contig"
+    refs = rng.integers(0, 4, n_sites).astype(np.int64)
+    alts = (refs + rng.integers(1, 4, n_sites)) % 4
+    base = np.frombuffer(b"ACGT", np.uint8)
+
+    cur = rng.integers(0, n_founders, n_hap).astype(np.intp)
+    cols = np.arange(n_hap, dtype=np.int64)
+    secs = dict.fromkeys(("draws", "mosaic", "tiles", "emit", "write"), 0.0)
+    with open(path, "wb") as raw:
+        out = BgzfWriter(raw, level=1, threads=min(os.cpu_count() or 1, 8))
+        h.write_bcf(out)
+        for lo in range(0, n_sites, chunk_sites):
+            t0 = time.perf_counter()
+            hi = min(lo + chunk_sites, n_sites)
+            k = hi - lo
+            freqs = rng.beta(0.2, 0.8, size=k)
+            founder = (rng.random((k, n_founders))
+                       < freqs[:, None]).astype(np.uint8)
+            switch = _bernoulli_hits(rng, switch_rate, k * n_hap)
+            jumps = rng.integers(0, n_founders, switch.size)
+            miss = _bernoulli_hits(rng, p_missing, k * n_hap)
+            t1 = time.perf_counter()
+            row_of = np.searchsorted(switch // n_hap, np.arange(k + 1))
+            col_of = switch % n_hap
+            codes = np.empty((k, n_hap), dtype=np.uint8)
+            for i in range(k):
+                a, b = row_of[i], row_of[i + 1]
+                if lo + i > 0:  # the cohort's first row keeps its founders
+                    cur[col_of[a:b]] = jumps[a:b]
+                np.take(founder[i], cur, out=codes[i])
+            codes.reshape(-1)[miss] = 2
+            t2 = time.perf_counter()
+            ts = TileStore.from_codes(codes)
+            t3 = time.perf_counter()
+            zeros = np.zeros(k, dtype=np.int64)
+            chunks = native.emit_bcf_records(
+                np.zeros(k, np.int32), pos[lo:hi], np.ones(k, np.int64),
+                base[refs[lo:hi]].tobytes(),
+                np.arange(k, dtype=np.int64), np.ones(k, np.int32),
+                base[alts[lo:hi]].tobytes(),
+                np.arange(k, dtype=np.int64), np.ones(k, np.int32),
+                np.full(k, 2, np.int32), np.full(k, -1, np.int64),
+                0, 1, zeros, zeros, zeros, None, None, None,
+                -1, -1, -1, [], [], gt_id,
+                (ts.plane0, ts.plane1, cols))
+            t4 = time.perf_counter()
+            for c in chunks:
+                out.write(memoryview(c))
+            t5 = time.perf_counter()
+            for key, dt in zip(secs, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                      t5 - t4)):
+                secs[key] += dt
+            if log_every and (lo // chunk_sites) % log_every == 0:
+                print(f"[synth] {hi}/{n_sites} sites; seconds so far: "
+                      + ", ".join(f"{name} {s:.1f}"
+                                   for name, s in secs.items()),
+                      file=sys.stderr, flush=True)
+        t0 = time.perf_counter()
+        out.close()
+        secs["write"] += time.perf_counter() - t0
+    return secs
 
 
 def pbwt_codes(n_rows: int, m: int, seed: int = 0) -> np.ndarray:

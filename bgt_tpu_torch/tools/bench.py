@@ -14,7 +14,8 @@ built once and cached under ``build/bench_torch/`` behind stamps (never
   axis; ~31,716 rows x 2,031 words);
 
 and, unless ``BGT_TPU_BENCH_FULL=0``, the HRC-scale block (``hrc_full``:
-32,488 x 1M, a ~17 GB tile, and 1 x 39.2M sites).
+32,488 x 1M, a ~17 GB tile, its cohort drawn by
+``testing.synth_gt_bcf_sparse_to_file``, and 1 x 39.2M sites).
 
 Gates, each fatal: a failed gate or an exception in any block ends the run
 with a nonzero exit and prints no JSON line.
@@ -50,6 +51,7 @@ import hashlib
 import io
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -61,7 +63,7 @@ import torch
 from bgt_tpu_torch import cli, testing
 from bgt_tpu_torch.ops import counts
 from bgt_tpu_torch.ops.tiles import TileStore
-from bgt_tpu_torch.query import fastpath, importer
+from bgt_tpu_torch.query import engine, fastpath, importer
 from bgt_tpu_torch.query.view import main_view
 from bgt_tpu_torch.tools import measure
 
@@ -81,11 +83,15 @@ CONFIGS = {
 HRC_FULL_CFGS = {
     # true-HRC sample width, 1M sites: a ~17 GB tile, resident on an 80 GB
     # card; the subset is also timed with the device budget below the tile,
-    # where it streams row chunks (fastpath.stream_counts)
-    "full": dict(n_samples=32488, n_sites=1_000_000, seed=2601),
+    # where it streams row chunks (fastpath.stream_counts).  Its cohort is
+    # drawn hit-only: the dense draws of synth_gt_bcf_to_file cost most of
+    # its 489 chunks at this width
+    "full": dict(n_samples=32488, n_sites=1_000_000, seed=2601,
+                 gen="synth_gt_bcf_sparse_to_file"),
     # true-HRC site count (39.2M rows): the site table, the CSI build and
     # RNI paging at the real scale
-    "site39m": dict(n_samples=1, n_sites=39_200_000, seed=2602),
+    "site39m": dict(n_samples=1, n_sites=39_200_000, seed=2602,
+                    gen="synth_gt_bcf_to_file"),
 }
 HRC_FULL_REGION = "11:10000001-20000000"
 
@@ -778,26 +784,36 @@ def bench_hrc_full(extra: dict, device, bench_dir: Path,
     for name, cfg in cfgs.items():
         sub = ex.setdefault(name, {})
         sub["shape"] = f"{cfg['n_samples']}x{cfg['n_sites']}"
+        sub["gen"] = cfg["gen"]
         step = Step(sub, device)
-        stamp = d / (f"stamp-{name}-{cfg['n_samples']}x{cfg['n_sites']}-"
-                     f"{cfg['seed']}")
+        # the generator is in the names: a cohort made by another is never
+        # reused
+        key = (f"{name}-{cfg['n_samples']}x{cfg['n_sites']}-{cfg['seed']}-"
+               f"{cfg['gen']}")
+        stamp = d / f"stamp-{key}"
+        inp = d / f"{key}_in.bcf"
         our = f"{name}_ourdb"
         if stamp.exists():
             sub.update(json.loads(stamp.read_text()))
         else:
             meta = {}
-            inp = d / f"{name}_in.bcf"
             if not inp.exists():
                 log(f"[hrc_full:{name}] generating input BCF "
-                    f"({cfg['n_samples']} x {cfg['n_sites']})...")
+                    f"({cfg['n_samples']} x {cfg['n_sites']}, "
+                    f"{cfg['gen']})...")
                 t0 = time.perf_counter()
-                testing.synth_gt_bcf_to_file(
+                stages = getattr(testing, cfg["gen"])(
                     str(inp) + ".tmp", n_samples=cfg["n_samples"],
                     n_sites=cfg["n_sites"], seed=cfg["seed"], log_every=50)
                 os.replace(str(inp) + ".tmp", inp)
                 meta["gen_s"] = time.perf_counter() - t0
-                log(f"[hrc_full:{name}] generated in {meta['gen_s']:.1f} s "
-                    f"({inp.stat().st_size / 1e9:.2f} GB)")
+                chunks = -(-cfg["n_sites"] // 2048)  # the generators' chunk
+                meta["gen_s_per_chunk"] = meta["gen_s"] / chunks
+                if stages is not None:
+                    meta["gen_stages_s"] = stages
+                log(f"[hrc_full:{name}] generated in {meta['gen_s']:.1f} s, "
+                    f"{meta['gen_s_per_chunk']:.3f} s a chunk "
+                    f"({inp.stat().st_size / 1e9:.2f} GB); stages {stages}")
             t0 = time.perf_counter()
             n = importer.import_vcf(str(d / our), [str(inp)])
             dt = time.perf_counter() - t0
@@ -813,7 +829,7 @@ def bench_hrc_full(extra: dict, device, bench_dir: Path,
             sub.update(meta)
         if ref is not None:
             sub["import_ref_s"] = ref.import_(d, f"{name}_refdb",
-                                              [f"{name}_in.bcf"], vcf=False)
+                                              [inp.name], vcf=False)
             for e in (".pbf", ".bcf"):
                 gate(f"[hrc_full:{name}] import {e}",
                      file_md5(d / f"{our}{e}"),
@@ -850,11 +866,24 @@ def bench_hrc_full(extra: dict, device, bench_dir: Path,
         log(f"block hrc_full:{name}: {json.dumps(sub)}")
 
 
+def region_rows(prefix: str, region: str) -> int:
+    """The rows of database ``prefix`` that ``-r region`` selects (one
+    contig, ``chrom:beg-end``, 1-based and inclusive)."""
+    bf = engine.BgtFile(prefix)
+    st = fastpath.get_site_table(bf)
+    chrom, span = region.split(":")
+    beg, end = (int(x) for x in span.split("-"))
+    tid = bf.h0.name2id(chrom)
+    return int(np.count_nonzero((st.rid == tid) & (st.pos < end)
+                                & (st.pos + st.rlen > beg - 1)))
+
+
 def bench_hrc_full_subset(d: Path, cfg: dict, sub: dict, step: Step, device,
                           ref: Reference | None) -> None:
     """hrc_full's subset counts (every 8th sample over the region): under
     the caller's tier, on the device with the tile resident, and streamed
-    (``BGT_TPU_HBM_BUDGET`` below the tile), each gated on the host tier."""
+    (``BGT_TPU_HBM_BUDGET`` below the tile), each gated on the host tier,
+    and the device steps on where the planes were: resident, then not."""
     spl = d / "full_subset.txt"
     if not spl.exists():
         spl.write_text("".join(f"S{i:05d}\n"
@@ -891,6 +920,22 @@ def bench_hrc_full_subset(d: Path, cfg: dict, sub: dict, step: Step, device,
         fastpath._DEVICE_CACHE.clear()
     if "stream" not in sub["tiers"]["subset_streamed"]:
         raise RuntimeError("the streamed subset did not stream")
+    for label, want in (("subset_device_first", True),
+                        ("subset_device", True), ("subset_streamed", False)):
+        if sub[f"resident_{label}"] != want:
+            raise RuntimeError(f"[hrc_full:full] {label}: planes resident "
+                               f"{sub[f'resident_{label}']}, expected {want}")
+    # what the streamed step gathers and copies: the region's rows of both
+    # planes
+    rows = region_rows(str(d / "full_ourdb"), HRC_FULL_REGION)
+    nbytes = rows * sub["gtc_bytes"] // sub["n_rows"]
+    sub.update(subset_streamed_rows=rows, subset_streamed_bytes=nbytes,
+               subset_streamed_gbs=nbytes / sub["q_subset_streamed_s"] / 1e9,
+               max_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+               / 1e6)
+    log(f"[hrc_full:full] streamed {rows} rows, {nbytes / 1e9:.3f} GB at "
+        f"{sub['subset_streamed_gbs']:.2f} GB/s; peak RSS "
+        f"{sub['max_rss_gb']:.1f} GB")
     sub["q_subset_ref_s"] = None
     if ref is not None:
         gate("[hrc_full:full] subset", host,

@@ -5,13 +5,13 @@
     python3 chip_smoke.py --cards N
 
 Needs one NVIDIA Hopper card (compute capability 9.0) and ``nvcc``; exits
-non-zero, printing no result, without them.  Phases 1-12 and 14 run on
-cuda:0 and behave the same on a host of several cards; phase 13 runs where
-two or more Hopper cards are visible, and is logged as not run on one.
-``--cards N`` makes phase 13 mandatory (fewer than N cards: exit non-zero,
-no result), skips phases 3-12 (the preflight, the build and the cohort
-stay) and runs phase 14's scaling and multi-process steps across the N
-cards.  It imports nothing of JAX and
+non-zero, printing no result, without them.  Phases 1-12, 14 and 15 run
+on cuda:0 and behave the same on a host of several cards; phase 13 runs
+where two or more Hopper cards are visible, and is logged as not run on
+one.  ``--cards N`` makes phase 13 mandatory (fewer than N cards: exit
+non-zero, no result), skips phases 3-12 and 15 (the preflight, the build
+and the cohort stay) and runs phase 14's scaling and multi-process steps
+across the N cards.  It imports nothing of JAX and
 nothing of ``bgt_tpu``: the cohort is made and imported by the port's own
 ``testing`` and ``importer``, and every device-tier output is held against
 the port's own host tier (``BGT_TPU_COUNT_TIER=host``: the same code as
@@ -135,10 +135,20 @@ each fatal on failure:
    cards (on one, its one-card steps; the rest recorded as not run), every
    count exact against the host popcount; (d) ``bench_multiprocess`` with
    2 gloo ranks on cuda:0.  With ``--cards N`` only (c) over the N cards
-   and (d) N NCCL ranks.
+   and (d) N NCCL ranks;
+15. the bench's HRC-scale block (``bench.bench_hrc_full``) on hrc_full's
+   configuration, its full width (32,488 samples) and its generator
+   (``testing.synth_gt_bcf_sparse_to_file``), its depth cut to 32,768
+   sites (16 of its 489 chunks): the cohort made, imported and tiled, the
+   region, and the subset (every 8th sample over the region) under
+   ``auto``, memoized, on the card with the planes resident (first with
+   their transfer, then again) and streamed with the device budget below
+   the tile; every md5 must equal the port's host tier, the resident steps
+   must launch kernel A on resident planes and the streamed one on the
+   ``stream`` tier.
 
 The line before the last is a JSON object with each kernel's launches on its
-path (kernel A's: phases 5-6, 11, 13 and 14; D's: phase 12), its largest
+path (kernel A's: phases 5-6, 11, 13, 14 and 15; D's: phase 12), its largest
 difference from the plain version, its times and its bound (with
 ``--cards``: A's on phase 13's tile, and no numbers for B, C and D); the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2175,6 +2185,59 @@ def tools_path(torch, n: int, across: bool) -> int:
     return launches
 
 
+# phase 15: hrc_full's depth cut to 16 of the generator's 2,048-site chunks
+HRC_BLOCK_SITES = 32_768
+
+
+def hrc_block(torch) -> int:
+    """Phase 15, the bench's HRC-scale block at full width on cuda:0:
+    ``bench.bench_hrc_full`` on hrc_full's configuration with
+    HRC_BLOCK_SITES sites, its database under ``build/chip_smoke/``.  The
+    block gates every step on the port's host tier, a device step with no
+    kernel A, a streamed step off the ``stream`` tier, and resident steps
+    whose planes are not on the card.  Returns kernel A's launches in the
+    block, counted from 0."""
+    from bgt_tpu_torch.ops import counts
+    from bgt_tpu_torch.tools import bench
+    from bgt_tpu_torch.tools.measure import describe
+
+    set_env(**dict.fromkeys(MESH_ENV + ("BGT_TPU_HBM_BUDGET",), None))
+    device = torch.device("cuda", 0)
+    cfg = dict(bench.HRC_FULL_CFGS["full"], n_sites=HRC_BLOCK_SITES)
+    extra: dict = {}
+    counts.LAUNCHES["count_codes"] = 0
+    t0 = time.perf_counter()
+    bench.bench_hrc_full(extra, device, REPO / "build" / "chip_smoke", None,
+                         cfgs={"full": cfg})
+    launches = counts.LAUNCHES["count_codes"]
+    sub = extra["hrc_full"]["full"]
+    if launches != sum(sub["launches"].values()):
+        raise AssertionError(f"phase 15: {launches} launches of kernel A, "
+                             f"its steps counted {sub['launches']}")
+    card = ", ".join(describe(device))
+    made = (f"made in {sub['gen_s']:.1f} s ({sub['gen_s_per_chunk']:.3f} s "
+            f"a chunk; {json.dumps(sub['gen_stages_s'])}), "
+            if "gen_s" in sub else "input BCF made earlier, ")
+    log(f"[hrc] {sub['shape']} ({sub['gen']}): {made}imported in "
+        f"{sub['import_ours_s']:.1f} s ({sub['n_rows']} rows), tile "
+        f"{sub['gtc_build_s']:.1f} s ({sub['gtc_bytes'] / 1e9:.3f} GB)")
+    log(f"[hrc] region -G -C: first {sub['q_region_first_s']:.4f} s, warm "
+        f"{sub['q_region_warm_s']:.4f} s ({sub['q_region_sites']} lines)")
+    for label in ("subset_first", "subset_warm", "subset_device_first",
+                  "subset_device", "subset_streamed"):
+        log(f"[hrc] {label}: {sub[f'q_{label}_s']:.4f} s, tiers "
+            f"{sub['tiers'][label]}, A +{sub['launches'][label]}, planes "
+            f"resident {sub[f'resident_{label}']}")
+    log(f"[hrc] streamed {sub['subset_streamed_rows']} rows, "
+        f"{sub['subset_streamed_bytes'] / 1e9:.3f} GB, "
+        f"{sub['subset_streamed_gbs']:.2f} GB/s; peak RSS "
+        f"{sub['max_rss_gb']:.1f} GB; every md5 equal to the host tier's; "
+        f"{time.perf_counter() - t0:.1f} s, kernel A launches {launches} | "
+        f"{card}")
+    log(f"[hrc] json: {json.dumps(sub)}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2300,6 +2363,8 @@ def main(argv=None) -> int:
         log(f"[cards] phase 13 (the mesh across cards) needs two or more "
             f"Hopper cards; {n_cards} visible: not run")
     launches["count_codes"] += tools_path(torch, args.cards, bool(args.cards))
+    if not args.cards:
+        launches["count_codes"] += hrc_block(torch)
     for pkg in ("jax", "bgt_tpu"):
         if any(m == pkg or m.startswith(pkg + ".") for m in sys.modules):
             raise AssertionError(f"{pkg} was imported")
