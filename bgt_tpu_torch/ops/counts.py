@@ -34,6 +34,8 @@ import threading
 import numpy as np
 import torch
 
+from ..log import span
+
 # Launches of each CUDA kernel, counted by its wrapper where it launches it,
 # and the same launches by (kernel, card index)
 LAUNCHES = {"count_codes": 0, "count_raw": 0, "count_codes_narrow": 0}
@@ -338,7 +340,10 @@ def gt_pair_idx_range(p0: torch.Tensor, p1: torch.Tensor, cols: torch.Tensor,
 
 
 def counts_to_numpy(counts: torch.Tensor) -> np.ndarray:
-    return counts.cpu().numpy()
+    """The counts on the host: on a CUDA tensor, the wait for the pass and
+    its copy back (a ``count.readback`` span)."""
+    with span("count.readback", bytes=counts.numel() * counts.element_size()):
+        return counts.cpu().numpy()
 
 
 _STAGE_BYTES = 64 << 20

@@ -24,6 +24,7 @@ from ..formats.fmf import FMF_INT, Fmf, FmfStream
 from ..formats.pbf import PbfReader
 from ..io import files
 from ..io.bgzf import BgzfReader
+from ..log import stage
 
 # flags (bgt.h:8-11)
 F_SET_AC = 0x0001
@@ -41,19 +42,20 @@ class BgtFile:
     """Shared read-only database handle (bgt_file_t, bgt.c:40-70)."""
 
     def __init__(self, prefix: str):
-        self.prefix = prefix
-        fp = BgzfReader(prefix + ".bcf")
-        self.h0 = bcflib.BcfHeader.read_bcf(fp)
-        fp.close()
-        self.idx = HtsIndex.load(prefix + ".bcf.csi")
-        self.f = Fmf.read(prefix + ".spl")
-        self.mgs = np.full(self.f.n_rows, -1, dtype=np.int32)
-        if "_mgs" in self.f._key_id:
-            kid = self.f._key_id["_mgs"]
-            for i, (_name, metas) in enumerate(self.f.rows):
-                for mk, t, v in metas:
-                    if mk == kid and t == FMF_INT and v >= 0:
-                        self.mgs[i] = v
+        with stage("db.open", always=True, db=prefix):
+            self.prefix = prefix
+            fp = BgzfReader(prefix + ".bcf")
+            self.h0 = bcflib.BcfHeader.read_bcf(fp)
+            fp.close()
+            self.idx = HtsIndex.load(prefix + ".bcf.csi")
+            self.f = Fmf.read(prefix + ".spl")
+            self.mgs = np.full(self.f.n_rows, -1, dtype=np.int32)
+            if "_mgs" in self.f._key_id:
+                kid = self.f._key_id["_mgs"]
+                for i, (_name, metas) in enumerate(self.f.rows):
+                    for mk, t, v in metas:
+                        if mk == kid and t == FMF_INT and v >= 0:
+                            self.mgs[i] = v
 
     @property
     def n_samples(self) -> int:

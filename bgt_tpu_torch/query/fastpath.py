@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import log
 from ..core import kexpr
 from ..formats import bcf as bcflib
 from ..io.bgzf import BgzfReader
@@ -335,6 +336,7 @@ _TIERS_LOCK = threading.Lock()
 def _answered(tier: str) -> None:
     with _TIERS_LOCK:
         TIERS[tier] += 1
+    log.annotate(tier=tier)  # on the pass's ``count`` span
 
 
 def _cache_key(bf: engine.BgtFile):
@@ -360,7 +362,8 @@ def get_tiles(bf: engine.BgtFile) -> TileStore:
     key = _cache_key(bf)
     ts = _lru_get(_TILE_CACHE, key)
     if ts is None:
-        ts = TileStore.open_or_build(bf.prefix)
+        with log.stage("tiles.build", always=True, db=bf.prefix):
+            ts = TileStore.open_or_build(bf.prefix)
         _lru_put(_TILE_CACHE, key, ts, _TILE_CAP)
     return ts
 
@@ -413,7 +416,9 @@ def get_device_tiles(bf: engine.BgtFile,
             ts = get_tiles(bf)
             dt = None
             if ts.plane0.nbytes * 2 <= _hbm_budget(device):
-                dt = DeviceTiles(ts, device)
+                with log.stage("tiles.upload", always=True, db=bf.prefix,
+                               bytes=ts.plane0.nbytes * 2):
+                    dt = DeviceTiles(ts, device)
             _lru_put(_DEVICE_CACHE, key, dt, _DEVICE_CAP)
             return dt
     finally:
@@ -468,7 +473,9 @@ def stream_counts(ts: TileStore, rows: np.ndarray, masks: np.ndarray,
                     copied[k].record(side)
                 main.wait_event(copied[k])
             a, b = devs[k]
-            pending.append(counts_ops.count_codes_range(a, b, dm, 0, n))
+            with log.span("count.launch", rows=n, words=a.shape[1],
+                          groups=g):
+                pending.append(counts_ops.count_codes_range(a, b, dm, 0, n))
             if cuda:
                 read[k] = torch.cuda.Event()
                 read[k].record(main)
@@ -1049,6 +1056,14 @@ class DbCtx:
 
     def counts_for(self, rows: np.ndarray, masks: np.ndarray,
                    sharding_cb=None) -> np.ndarray:
+        """(len(rows), n_groups, 4) counts, under a ``count`` span that
+        names the tier that answered."""
+        with log.span("count", rows=int(rows.size),
+                      groups=int(masks.shape[0])):
+            return self._counts_for(rows, masks, sharding_cb)
+
+    def _counts_for(self, rows: np.ndarray, masks: np.ndarray,
+                    sharding_cb=None) -> np.ndarray:
         """(len(rows), n_groups, 4) counts.
 
         Resolution order as in ``bgt_tpu``: (1) the all-columns rowstats
@@ -1123,8 +1138,11 @@ class DbCtx:
                 return stream_counts(ts, rows, masks, self.device)
             _answered("device")
             dm = counts_ops.planes_to_torch(masks, self.device)
-            counts = counts_ops.counts_to_numpy(counts_ops.count_codes_range(
-                dt.p0, dt.p1, dm, start, length))
+            with log.span("count.launch", rows=length, words=dt.p0.shape[1],
+                          groups=masks.shape[0]):
+                out = counts_ops.count_codes_range(dt.p0, dt.p1, dm, start,
+                                                   length)
+            counts = counts_ops.counts_to_numpy(out)
         if memo_ok:
             with _CACHE_LOCK:
                 while (sum(v.nbytes for v in _COUNT_MEMO.values())
@@ -1457,7 +1475,7 @@ class FastView:
     # --- the full run ------------------------------------------------------
 
     def run(self, out) -> None:
-        with device_trace(self.device):
+        with device_trace(self.device), log.span("view"):
             self._run(out)
 
     def _run(self, out) -> None:
@@ -1526,21 +1544,22 @@ class FastView:
         # site filter over the whole batch
         pass_mask = np.ones(mv.n, dtype=bool)
         if bm.site_flt is not None:
-            env = {"AC": ac.astype(np.int64), "AN": an.astype(np.int64)}
-            for gi in range(n_groups):
-                env[f"AN{gi + 1}"] = (gan[:, gi] if n_groups > 1 else an).astype(np.int64)
-                env[f"AC{gi + 1}"] = (gac[:, gi] if n_groups > 1 else ac).astype(np.int64)
-            try:
-                fn = bm.site_flt.compile_vector(np)
-                missing_vars = bm.site_flt.var_names - set(env)
-                if missing_vars:
-                    raise TypeError(f"unknown vars {missing_vars}")
-                _t, vec = fn(env)
-                pass_mask = np.asarray(vec) != 0
-            except (TypeError, KeyError):
-                for i in range(mv.n):
-                    ss = self._site_info(i, counts)
-                    pass_mask[i] = bm.pass_site_flt(ss)
+            with stage("filter"):
+                env = {"AC": ac.astype(np.int64), "AN": an.astype(np.int64)}
+                for gi in range(n_groups):
+                    env[f"AN{gi + 1}"] = (gan[:, gi] if n_groups > 1 else an).astype(np.int64)
+                    env[f"AC{gi + 1}"] = (gac[:, gi] if n_groups > 1 else ac).astype(np.int64)
+                try:
+                    fn = bm.site_flt.compile_vector(np)
+                    missing_vars = bm.site_flt.var_names - set(env)
+                    if missing_vars:
+                        raise TypeError(f"unknown vars {missing_vars}")
+                    _t, vec = fn(env)
+                    pass_mask = np.asarray(vec) != 0
+                except (TypeError, KeyError):
+                    for i in range(mv.n):
+                        ss = self._site_info(i, counts)
+                        pass_mask[i] = bm.pass_site_flt(ss)
 
         no_gt = bool(bm.flag & engine.F_NO_GT)
 
@@ -1636,13 +1655,14 @@ class FastView:
                     return np.zeros((msel.size, 0), dtype=np.uint8)
                 return np.concatenate(blocks, axis=1) if len(blocks) > 1 else blocks[0]
 
-        with stage("emit"):
-            self._emit_vcf_lines(out, sel, mv, an, ac, ac_m,
-                                 gan if n_groups > 1 else None,
-                                 gac if n_groups > 1 else None,
-                                 gac_m if n_groups > 1 else None,
-                                 info_on, gt_codes_fn, ctg_names,
-                                 gt_planes_spec)
+        with stage("emit") as sp:
+            sent = self._emit_vcf_lines(out, sel, mv, an, ac, ac_m,
+                                        gan if n_groups > 1 else None,
+                                        gac if n_groups > 1 else None,
+                                        gac_m if n_groups > 1 else None,
+                                        info_on, gt_codes_fn, ctg_names,
+                                        gt_planes_spec)
+            sp.set(lines=int(sel.size), bytes=sent)
 
     def _accumulate_al_hap(self, sel, mv: MergedSites) -> None:
         """-S/-H accumulators, batched over the tile store.
@@ -1767,8 +1787,9 @@ class FastView:
 
     def _emit_vcf_lines(self, out, sel, mv: MergedSites, an, ac, ac_m,
                         gan, gac, gac_m, info_on, gt_codes_fn, ctg_names,
-                        gt_planes_spec=None) -> None:
-        """Assemble and write all passing site lines.
+                        gt_planes_spec=None) -> int:
+        """Assemble and write all passing site lines; returns the bytes
+        written.
 
         Native path: one C call assembles every line (itoa + memcpy) from the
         columnar arrays; GT cells come from one LUT gather for the whole
@@ -1836,7 +1857,7 @@ class FastView:
             else:
                 for data in chunks:
                     out.write(data.tobytes().decode("latin-1"))
-            return
+            return sum(data.nbytes for data in chunks)
 
         # ----- Python fallback -----
         gt_strs = None
@@ -1877,7 +1898,9 @@ class FastView:
                 line += "\tGT" + big[k * w: (k + 1) * w]
             ap(line)
         ap("")
-        out.write("\n".join(parts))
+        text = "\n".join(parts)
+        out.write(text)
+        return len(text)
 
     def _emit_bcf(self, writer, sel, mv: MergedSites, an, ac, ac_m,
                   gan, gac, gac_m, info_on, no_gt) -> None:

@@ -16,6 +16,14 @@ read-back of its counts is the only synchronisation it waits for.  The
 producer runs with the card that was current when the server was made as
 its current device (a rank's own card after ``distributed.initialize``);
 on a mesh each launch runs under its slot's card.
+
+Each request's spans (``log``) form one tree under one request id:
+``request`` from ``do_GET`` to the chunked trailer, ``server.queue`` from
+the connection's accept to ``do_GET``, ``reader.open``, ``prepare`` (one
+``prepare.group`` a group, ``prepare.select``) and, in the producer thread,
+which runs in the request's context, ``producer.wait`` from its start and
+the view's spans.  Under ``BGT_TPU_TRACE`` the profiler window covers the
+whole request.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from urllib.parse import parse_qsl, urlsplit
 
 import torch
 
+from .. import log
 from ..formats.fmf import Fmf
 from ..io import files
 from ..query import fastpath
@@ -240,10 +249,16 @@ def _prepare(cfg: ServerConfig, form: dict, bm: BgtmReader):
         if n_al == 0:
             raise _Refused(204, "204 No Content: no alleles matching "
                                 "parameter 'a'\n")
+    samples = sum(g.f.n_samples for g in bm.bgt)
     for s in form.get("s", ()):
-        if bm.add_group(_replace_op(s)) < 0:
+        # one expression evaluation a sample of each database
+        with log.span("prepare.group", samples=samples) as sp:
+            selected = bm.add_group(_replace_op(s))
+            sp.set(selected=selected)
+        if selected < 0:
             raise _bad("s", "set sample group with")
-    bm.prepare()
+    with log.span("prepare.select"):
+        bm.prepare()
     if not bm.test_mgs():
         raise _Refused(403, "403 Forbidden: genotype summary can't be "
                             "computed for small sample groups\n")
@@ -259,9 +274,11 @@ def run_query(cfg: ServerConfig, form: dict, device: torch.device,
     output through a bounded queue; ``card``, where given, is that thread's
     current CUDA device.
     """
-    bm = BgtmReader(cfg.files)
+    with log.span("reader.open"):
+        bm = BgtmReader(cfg.files)
     try:
-        opt, flag, vcf_out = _prepare(cfg, form, bm)
+        with log.span("prepare"):
+            opt, flag, vcf_out = _prepare(cfg, form, bm)
     except _Refused as e:
         bm.close()
         return e.status, iter([e.msg])
@@ -282,6 +299,7 @@ def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
     err: list[BaseException] = []
     left = [0]
     left_mu = threading.Lock()
+    handed = [0]  # when the producer was started, while spans record
 
     def leave() -> None:
         with left_mu:
@@ -291,6 +309,8 @@ def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
             bm.close()
 
     def work() -> None:
+        if handed[0]:
+            log.add("producer.wait", handed[0])
         try:
             with (torch.cuda.device(card) if card is not None
                   else contextlib.nullcontext()):
@@ -303,11 +323,14 @@ def _stream(bm: BgtmReader, opt: _Opt, flag: int, vcf_out: bool,
             w.close_producer()
             leave()
 
-    t = threading.Thread(target=work, daemon=True, name="bgt-stream-producer")
+    t = threading.Thread(target=log.carry(work), daemon=True,
+                         name="bgt-stream-producer")
     started = False
     try:
         if vcf_out:
             yield (bm.h_out.text + "\n").encode("latin-1")
+        if log.recording():
+            handed[0] = log.now()
         t.start()
         started = True
         yield from w.drain()
@@ -339,6 +362,15 @@ class _Handler(BaseHTTPRequestHandler):
         print(f"[{time.time_ns()}] {fmt % args}", file=sys.stderr)
 
     def do_GET(self):
+        accepted = self.server.accepted.pop(self.request, 0)
+        with log.query(self.device, "request") as req:
+            if accepted:
+                log.add("server.queue", accepted, req.t0)
+            status, sent = self._get()
+            req.set(status=status, bytes=sent)
+
+    def _get(self) -> tuple[int, int]:
+        """Answer the request; returns (status, body bytes sent)."""
         url = urlsplit(self.path)
         raw = url.query.replace("&&", ".AND.")
         form: dict[str, list[str]] = {}
@@ -346,28 +378,30 @@ class _Handler(BaseHTTPRequestHandler):
             form.setdefault(k, []).append(v)
         if not form:
             body = help_text(self.cfg, self.headers.get("Host", "localhost"))
-            self._send_whole(200, body.encode("latin-1", errors="replace"))
-            return
+            return self._send_whole(200, body.encode("latin-1",
+                                                     errors="replace"))
         try:
             status, chunks = run_query(self.cfg, form, self.device,
                                        self.card)
         except Exception as e:  # noqa: BLE001 - reported to the client
-            self._send_whole(500, f"500 Internal Server Error: {e}\n".encode())
-            return
+            return self._send_whole(
+                500, f"500 Internal Server Error: {e}\n".encode())
         # chunked transfer encoding: records flow as they are produced
         self.send_response(status)
         self.send_header("Content-Type", "text/plain; charset=utf-8")
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
+        sent = 0
         try:
             try:
                 for data in chunks:
                     if isinstance(data, str):
                         data = data.encode("latin-1", errors="replace")
                     if data:
-                        self._send_chunk(data)
+                        sent += self._send_chunk(data)
             except Exception as e:  # noqa: BLE001 - headers already sent
-                self._send_chunk(f"\n500 Internal Server Error: {e}\n".encode())
+                sent += self._send_chunk(
+                    f"\n500 Internal Server Error: {e}\n".encode())
             self.wfile.write(b"0\r\n\r\n")
         except BrokenPipeError:
             pass
@@ -376,18 +410,39 @@ class _Handler(BaseHTTPRequestHandler):
             close = getattr(chunks, "close", None)
             if close is not None:
                 close()
+        return status, sent
 
-    def _send_chunk(self, data: bytes) -> None:
+    def _send_chunk(self, data: bytes) -> int:
         self.wfile.write(b"%x\r\n" % len(data))
         self.wfile.write(data)
         self.wfile.write(b"\r\n")
+        return len(data)
 
-    def _send_whole(self, status: int, data: bytes) -> None:
+    def _send_whole(self, status: int, data: bytes) -> tuple[int, int]:
         self.send_response(status)
         self.send_header("Content-Type", "text/plain; charset=utf-8")
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
+        return status, len(data)
+
+
+class _Server(ThreadingHTTPServer):
+    """The threading server, stamping each connection's accept time: the
+    request's ``server.queue`` span runs from it to ``do_GET`` (a traced
+    query's profiler window opens only in ``do_GET``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.accepted: dict = {}  # socket -> perf_counter_ns at accept
+
+    def process_request(self, request, client_address):
+        self.accepted[request] = log.now()
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        self.accepted.pop(request, None)
+        super().shutdown_request(request)
 
 
 def make_server(cfg: ServerConfig,
@@ -402,15 +457,17 @@ def make_server(cfg: ServerConfig,
                 else torch.device("cuda", torch.cuda.current_device()))
     handler = type("Handler", (_Handler,),
                    {"cfg": cfg, "device": device, "card": card})
-    return ThreadingHTTPServer(("", cfg.port), handler)
+    return _Server(("", cfg.port), handler)
 
 
 def _warm_up(device: torch.device) -> None:
     """Build or load the kernel library and create the CUDA context on
     ``device``, so that the first request pays neither."""
     from ..ops import _kernels
-    _kernels.library()
-    with torch.cuda.device(device):
+    with log.stage("startup.kernel_library", always=True):
+        _kernels.library()
+    with log.stage("startup.cuda_context", always=True), \
+            torch.cuda.device(device):
         torch.empty(1, device=device)
         torch.cuda.synchronize()
 
