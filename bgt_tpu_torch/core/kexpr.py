@@ -7,13 +7,16 @@ real with ``i = (int64)(r + .5)``, ``//`` and ``%`` truncate toward zero,
 ``&&``/``||`` are non-short-circuit int ops, and unknown functions or
 unassigned variables flag an error while still evaluating with defaults.
 
-Two evaluators are provided:
+Three evaluators are provided:
 
 - :meth:`Kexpr.eval` — scalar, error-compatible with ``ke_eval``;
 - :meth:`Kexpr.compile_vector` — compiles the RPN once into a function over
   numpy/jax arrays so per-site filters (AC/AN/AC#/AN#) evaluate for a whole
   site batch at once instead of re-binding per row (the TPU replacement for
-  per-site ``ke_set_int`` + ``ke_eval`` in reference bgt.c:700-719).
+  per-site ``ke_set_int`` + ``ke_eval`` in reference bgt.c:700-719);
+- :meth:`Kexpr.eval_rows` — ``eval`` over every row of a table at once,
+  both of its lanes kept, for sample groups over the ``.spl``
+  (``Fmf.test_all``).
 """
 
 from __future__ import annotations
@@ -446,6 +449,181 @@ class Kexpr:
             return stack[-1]
 
         return run
+
+    # --- row evaluation: ``eval`` over a table's columns --------------------
+
+    def eval_rows(self, env: dict, valid):
+        """``eval_int``'s integer for every row of a table at once.
+
+        Each stack value keeps both of :meth:`eval`'s lanes, int64 and
+        float64 (and a string's :class:`Categorical`), as arrays over the
+        rows or, where no variable feeds them, numpy scalars; each operator
+        reads and writes the lanes ``_apply2``/``_apply1`` do, so the result
+        is the scalar one wherever the scalar's integers fit int64.  ``env``
+        maps each variable to an int64 array (a value bound with ``set_int``)
+        or a Categorical whose ``uniq`` is sorted (``set_str``); ``valid``
+        marks the rows on which every variable is bound, the only rows whose
+        result counts.  Raises :class:`NotExact` where the lanes cannot
+        follow: an integer beyond int64 on a valid row; ``//`` or ``%`` where
+        the scalar raises (a zero divisor) or may (a divisor that reads a
+        variable, on a row that lacks one: the scalar divides by the
+        previous row's binding there); ``**`` (libm's ``pow`` against
+        numpy's); a bound function.
+        """
+        import numpy as np
+        every_row = bool(valid.all())
+        # (lanes, whether no variable feeds them); lanes are (vtype, int,
+        # real or None for the int's float, Categorical or None)
+        stack = []
+        for e in self.rpn:
+            if e.ttype == _OP:
+                if e.n_args == 2:
+                    q, const_q = stack.pop()
+                    p, const_p = stack.pop()
+                    if e.op in (8, 9) and not (every_row or const_q):
+                        raise NotExact("// or % on a row with unbound variables")
+                    stack.append((_rows_apply2(e.op, p, q, valid),
+                                  const_p and const_q))
+                else:
+                    p, const = stack.pop()
+                    stack.append((_rows_apply1(e.op, p, valid), const))
+            elif e.ttype == _FUNC:
+                if e.func is not None:
+                    raise NotExact("bound function")
+                if e.name == "abs" and e.n_args == 1:
+                    (t, i, r, s), const = stack.pop()
+                    if t == KEV_INT:
+                        _fits(i, valid)
+                        i, r = np.abs(i), None
+                    else:
+                        r = np.abs(_real(i, r))
+                        i = _trunc_rows(r)
+                    stack.append(((t, i, r, s), const))
+                else:  # unknown function: keep first arg
+                    for _ in range(e.n_args - 1):
+                        stack.pop()
+            elif e.name is not None:
+                v = env[e.name]
+                if isinstance(v, Categorical):
+                    lanes = KEV_STR, np.int64(0), np.float64(0.0), v
+                else:
+                    lanes = KEV_INT, v, None, None
+                stack.append((lanes, False))
+            else:
+                if not INT64_MIN <= e.i < -INT64_MIN:
+                    raise NotExact("integer literal beyond int64")
+                s = Categorical(np.int64(0), [e.s]) if e.vtype == KEV_STR \
+                    else None
+                stack.append(((e.vtype, np.int64(e.i), np.float64(e.r), s),
+                              True))
+        return stack[-1][0][1] if stack else np.int64(0)
+
+
+class NotExact(Exception):
+    """:meth:`Kexpr.eval_rows` cannot match the scalar machine here."""
+
+
+def _real(i, r):
+    """A value's real lane (None: ``float`` of its int lane)."""
+    import numpy as np
+    return i.astype(np.float64) if r is None else r
+
+
+def _fits(i, valid) -> None:
+    """Raise where negating ``i`` leaves int64 on a valid row."""
+    if ((i == INT64_MIN) & valid).any():
+        raise NotExact("integer beyond int64")
+
+
+def _trunc_rows(r):
+    """``_trunc`` of float64 lanes."""
+    import numpy as np
+    v = r + 0.5
+    bad = ~(v < 2.0 ** 63) | (v < -2.0 ** 63)  # NaN is bad too
+    return np.where(bad, INT64_MIN, np.trunc(np.where(bad, 0.0, v))
+                    .astype(np.int64))
+
+
+def _str_sign(p: "Categorical", q: "Categorical"):
+    """Each row's strcmp sign of two string lanes (``uniq`` sorted)."""
+    import bisect
+
+    import numpy as np
+    if len(q.uniq) == 1:
+        lo = bisect.bisect_left(p.uniq, q.uniq[0])
+        hi = bisect.bisect_right(p.uniq, q.uniq[0])
+        return (p.ids >= hi).astype(np.int64) - (p.ids < lo)
+    if len(p.uniq) == 1:
+        return -_str_sign(q, p)
+    rank = {u: k for k, u in enumerate(sorted(set(p.uniq).union(q.uniq)))}
+    a = np.array([rank[u] for u in p.uniq], np.int64)[p.ids]
+    b = np.array([rank[u] for u in q.uniq], np.int64)[q.ids]
+    return np.sign(a - b)
+
+
+def _rows_apply2(op: int, p: tuple, q: tuple, valid) -> tuple:
+    """``_apply2`` on lanes."""
+    import numpy as np
+    tp, ip, rp, sp = p
+    tq, iq, rq, sq = q
+    either_real = tp == KEV_REAL or tq == KEV_REAL
+    if 14 <= op <= 19:  # comparisons
+        if tp == KEV_STR and tq == KEV_STR:
+            v = _CMP[op](_str_sign(sp, sq), 0)
+        elif either_real:
+            v = _CMP[op](_real(ip, rp), _real(iq, rq))
+        else:
+            v = _CMP[op](ip, iq)
+    elif op in (20, 22, 21, 12, 13, 9, 8):  # & | ^ << >> % //
+        if op == 20:
+            v = ip & iq
+        elif op == 22:
+            v = ip | iq
+        elif op == 21:
+            v = ip ^ iq
+        elif op == 12:  # the 6-bit count of x86, wrapped on uint64
+            v = (ip.view(np.uint64) << (iq & 63).view(np.uint64)).view(np.int64)
+        elif op == 13:
+            v = ip >> (iq & 63)
+        else:  # the scalar raises on 0; INT64_MIN // -1 leaves int64
+            if not iq.all() or ((ip == INT64_MIN) & (iq == -1) & valid).any():
+                raise NotExact("// or % by 0, or beyond int64")
+            v = ip // iq  # floor; C truncates toward zero
+            v = v + ((ip % iq != 0) & ((ip < 0) != (iq < 0)))
+            if op == 9:
+                v = ip - v * iq
+    elif op in (10, 11, 6):  # + - * (int lane wraps like int64)
+        rp, rq = _real(ip, rp), _real(iq, rq)
+        if op == 10:
+            i, r = ip + iq, rp + rq
+        elif op == 11:
+            i, r = ip - iq, rp - rq
+        else:
+            i, r = ip * iq, rp * rq
+        return KEV_REAL if either_real else KEV_INT, i, r, sp
+    elif op == KEO_DIV:
+        r = _real(ip, rp) / _real(iq, rq)
+        return KEV_REAL, _trunc_rows(r), r, sp
+    elif op == 23:  # &&
+        v = (ip != 0) & (iq != 0)
+    elif op == 24:  # ||
+        v = (ip != 0) | (iq != 0)
+    else:  # ** (op 5)
+        raise NotExact("**")
+    return KEV_INT, v.astype(np.int64), None, sp
+
+
+def _rows_apply1(op: int, p: tuple, valid) -> tuple:
+    """``_apply1`` on lanes."""
+    import numpy as np
+    t, i, r, s = p
+    if op == 1:  # unary +
+        return p
+    if op == 2:  # unary -: -0.0 in the real lane, so it is kept
+        _fits(i, valid)
+        return t, -i, -_real(i, r), s
+    i = ~i if op == 3 else (i == 0).astype(np.int64)  # ~ or !
+    return KEV_INT, i, None, s
 
 
 def _apply2(op: int, p: list, q: list) -> None:

@@ -13,6 +13,7 @@ and flag-typed keys bind nothing (fmf.c:140-156, 185-227).
 from __future__ import annotations
 
 import gzip
+import threading
 
 from ..core import kexpr
 
@@ -20,6 +21,12 @@ FMF_FLAG = 0
 FMF_INT = 1
 FMF_REAL = 2
 FMF_STR = 3
+
+# ``Fmf.test_all`` calls by the path taken: ``vector`` evaluated the
+# expression once over the table's columns, ``scalar`` ran ``test`` a row
+GROUP_EVAL = {"vector": 0, "scalar": 0}
+_GROUP_EVAL_LOCK = threading.Lock()
+_MISSING = object()
 
 
 def _open_text(fn: str):
@@ -87,6 +94,11 @@ class Fmf:
         self.vals: list[str] = []
         self._val_id: dict[str, int] = {}
         self.rows: list[tuple[str, list]] = []  # (name, [(key_id, type, value)])
+        # built on first use and kept, as a server shares one table across
+        # request threads: each key's column, the name -> rows index, and
+        # whether every row binds (``_built``)
+        self._memo: dict = {}
+        self._lock = threading.Lock()
 
     @property
     def n_rows(self) -> int:
@@ -155,6 +167,122 @@ class Fmf:
                 ke.set_int(self.keys[kid], int(v))  # reference truncates here
         err, i = ke.eval_int()
         return not (err or not i)
+
+    def test_all(self, ke: kexpr.Kexpr):
+        """``[self.test(i, ke) for i in range(self.n_rows)]`` as a bool
+        array, and the path that computed it: ``vector`` evaluates the
+        expression once over the table's columns (``Kexpr.eval_rows``),
+        ``scalar`` falls back to ``test`` a row, where the columns cannot
+        reproduce it (``_ROW_``, a column of strings and numbers, a value
+        beyond int64 or a real that does not bind, ``eval_rows``'s
+        ``NotExact``)."""
+        import numpy as np
+        mask = self._test_columns(ke)
+        path = "scalar" if mask is None else "vector"
+        with _GROUP_EVAL_LOCK:
+            GROUP_EVAL[path] += 1
+        if mask is None:
+            mask = np.fromiter((self.test(i, ke) for i in range(self.n_rows)),
+                               dtype=bool, count=self.n_rows)
+        return mask, path
+
+    def _test_columns(self, ke: kexpr.Kexpr):
+        """``test_all``'s mask from the columns, or None (the loop's)."""
+        import numpy as np
+        names = ke.var_names
+        if "_ROW_" in names or not self._all_bindable():
+            return None
+        valid = np.ones(self.n_rows, dtype=bool)  # every variable bound
+        env = {}
+        for key in names:
+            col = self._column(key)
+            if col is None:
+                return None
+            valid &= col[0]
+            env[key] = col[1]
+        try:
+            with np.errstate(all="ignore"):
+                i = ke.eval_rows(env, valid)
+        except (kexpr.NotExact, IndexError):  # IndexError: an RPN that
+            return None                          # underflows, as "abs()1"
+        if any(e.ttype == kexpr._FUNC and e.func is None and e.name != "abs"
+               for e in ke.rpn):
+            return np.zeros(self.n_rows, dtype=bool)  # KEE_UNFUNC
+        return valid & (i != 0)
+
+    def _built(self, key, build):
+        """``build()`` once under the table's lock, kept under ``key``."""
+        got = self._memo.get(key, _MISSING)
+        if got is _MISSING:
+            with self._lock:
+                got = self._memo.get(key, _MISSING)
+                if got is _MISSING:
+                    got = self._memo[key] = build()
+        return got
+
+    def _all_bindable(self) -> bool:
+        """Whether ``test`` binds every row: it raises on a real that is
+        not finite (``int(v)``), whatever the expression names."""
+        import math
+        return self._built(("bindable",), lambda: all(
+            t != FMF_REAL or math.isfinite(v)
+            for _name, metas in self.rows for _k, t, v in metas))
+
+    def _column(self, key: str):
+        return self._built(key, lambda: self._build_column(key))
+
+    def _build_column(self, key: str):
+        """(present, values) of ``key`` as ``test`` binds it on each row: the
+        row's last typed meta of the key (a flag binds nothing), an int64
+        array (a real truncated, as ``set_int`` does) or a
+        :class:`kexpr.Categorical` over the column's sorted strings; None
+        for a column of strings and numbers or an int beyond int64."""
+        import numpy as np
+        n = self.n_rows
+        present = np.zeros(n, dtype=bool)
+        kid = self._key_id.get(key)
+        if kid is None:
+            return present, np.zeros(n, dtype=np.int64)
+        rows, types, vals = [], set(), []
+        for r, (_name, metas) in enumerate(self.rows):
+            last = None
+            for mkid, t, v in metas:
+                if mkid == kid and t != FMF_FLAG:
+                    last = t, v
+            if last is not None:
+                rows.append(r)
+                types.add(last[0] == FMF_STR)
+                vals.append(last[1])
+        present[rows] = True
+        if types == {True, False}:
+            return None
+        if types == {True}:
+            uniq = sorted(set(vals), key=self.vals.__getitem__)
+            rank = {v: k for k, v in enumerate(uniq)}
+            ids = np.zeros(n, dtype=np.int64)
+            ids[rows] = [rank[v] for v in vals]
+            return present, kexpr.Categorical(ids, [self.vals[v] for v in uniq])
+        values = np.zeros(n, dtype=np.int64)
+        try:
+            values[rows] = [int(v) for v in vals]
+        except OverflowError:
+            return None
+        return present, values
+
+    def name_rows(self, names) -> "np.ndarray":
+        """The rows whose name is in ``names``, as a bool array."""
+        import numpy as np
+
+        def index():
+            out: dict = {}
+            for r, (name, _metas) in enumerate(self.rows):
+                out.setdefault(name, []).append(r)
+            return out
+
+        idx = self._built(("names",), index)
+        mask = np.zeros(self.n_rows, dtype=bool)
+        mask[[r for name in set(names) for r in idx.get(name, ())]] = True
+        return mask
 
     def write_row(self, r: int) -> str:
         """Round-trip a row back to text (fmf_write)."""

@@ -131,6 +131,7 @@ class BgtReader:
         self.bed_excl = False
         self.n_out = 0
         self.n_groups = 0
+        self.group_path: str | None = None  # the last group's (add_group_core)
         self.mgs_def = 0
         self.out: np.ndarray | None = None
         self.group: np.ndarray | None = None
@@ -191,26 +192,19 @@ class BgtReader:
             self.gtag[:] = 1
             self.n_groups = 1
             return f.n_rows
-        ke = None
+        add = np.zeros(f.n_rows, dtype=bool)
+        self.group_path = None
         if expr is not None:
             ke, err = kexpr.parse(expr)
             if err or ke is None:
                 return -1
-        nameset = set(names or ())
-        size = 0
-        for i in range(f.n_rows):
-            to_add = False
-            if ke is not None and f.test(i, ke):
-                to_add = True
-            if f.row_name(i) in nameset:
-                mgs = self.f.mgs[i] if self.f.mgs[i] >= 0 else self.mgs_def
-                if mgs in (0, 1):
-                    to_add = True
-            if to_add:
-                size += 1
-                self.gtag[i] = self.n_groups + 1
+            add, self.group_path = f.test_all(ke)
+        if names:
+            mgs = np.where(self.f.mgs >= 0, self.f.mgs, self.mgs_def)
+            add = add | (f.name_rows(names) & ((mgs == 0) | (mgs == 1)))
+        self.gtag[add] = self.n_groups + 1
         self.n_groups += 1
-        return size
+        return int(np.count_nonzero(add))
 
     def add_group(self, expr: str) -> int:
         if expr[:1] in (":", ",") or (expr[:1] != "?" and files.is_file(expr)):
@@ -584,6 +578,7 @@ class BgtmReader:
         self.flag = 0
         self.n_out = 0
         self.n_groups = 0
+        self.group_path: str | None = None  # the last group's (add_group)
         self.mgs_def = 0
         self.n_gt_read = 0
         self.truncated = False  # set by the server fastpath quota cut
@@ -638,12 +633,19 @@ class BgtmReader:
         self.mgs_def = mgs_def
 
     def add_group(self, expr: str) -> int:
+        """Add one sample group to every database; ``group_path`` says how
+        its expression was evaluated (``Fmf.test_all``): ``scalar`` where
+        any database's was, None for a name list."""
+        self.group_path = None
         size = 0
         for g in self.bgt:
             ret = g.add_group(expr)
             if ret < 0:
                 return ret
             size += ret
+        paths = {g.group_path for g in self.bgt}
+        self.group_path = ("scalar" if "scalar" in paths else
+                           "vector" if "vector" in paths else None)
         self.n_groups += 1
         return size
 

@@ -251,10 +251,10 @@ def _prepare(cfg: ServerConfig, form: dict, bm: BgtmReader):
                                 "parameter 'a'\n")
     samples = sum(g.f.n_samples for g in bm.bgt)
     for s in form.get("s", ()):
-        # one expression evaluation a sample of each database
+        # one expression evaluation over each database's samples
         with log.span("prepare.group", samples=samples) as sp:
             selected = bm.add_group(_replace_op(s))
-            sp.set(selected=selected)
+            sp.set(selected=selected, path=bm.group_path)
         if selected < 0:
             raise _bad("s", "set sample group with")
     with log.span("prepare.select"):

@@ -4,7 +4,8 @@ A small cohort is imported by the port's importer and served in-process on
 the CPU device.  With spans on, one request's spans from the handler and
 the producer thread share one request id and form one tree under
 ``request``; the ``count`` span names the tier ``fastpath.TIERS`` counted;
-``prepare.group`` counts the samples it evaluated.  With spans off nothing
+``prepare.group`` counts the samples it evaluated and names the path that
+evaluated them.  With spans off nothing
 of a request is recorded and no ``record_function`` is entered; a
 ``torch.profiler`` window opened on another thread turns them on.  The
 Chrome export lines the spans up with the profiler's own events, and the
@@ -201,6 +202,18 @@ def test_group_span_counts_the_samples_evaluated(servers, spans_on,
         males * n_db, (N_SAMPLES - males) * n_db]
     prepare = [s for s in spans if s.name == "prepare"][0]
     assert all(s.parent == prepare.span for s in groups)
+    assert [s.attrs["path"] for s in groups] == ["vector", "vector"]
+
+
+@pytest.mark.parametrize("expr,path", [('gender=="F"||gender=="M"', "vector"),
+                                       ('_ROW_=="S0001"', "scalar")])
+def test_group_span_names_the_evaluation_path(servers, spans_on, device_tier,
+                                              expr, path):
+    since = log.now()
+    assert get(servers[1], query(s=[expr], C=["1"]))[0] == 200
+    groups = [s for s in tree(served_request(since))
+              if s.name == "prepare.group"]
+    assert [s.attrs["path"] for s in groups] == [path]
 
 
 def test_spans_off_record_nothing_of_a_request(servers, device_tier,
