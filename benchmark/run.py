@@ -15,7 +15,8 @@ program's layers, and the per-layer metrics replace the end-to-end ones.
 
 Earlier lines of standard output (``info ...``) give the card, ``input_s``,
 the generator's lateness, the count tiers' and kernels' counters over the
-window and the peak device memory.  The last line is the result; the last
+window, the peak device memory, the judge's seconds (``judge_s``) and the
+run's (``run_s``).  The last line is the result; the last
 lines of standard error are the numbers compared, each with its limit.  No
 card, fewer cards than the cell asks for, or ``jax``/``bgt_tpu`` loaded in
 this process: no result, and a non-zero exit.
@@ -281,7 +282,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     info("memory_peak_bytes", peak)
 
     got, t0 = w["got"], w["t0"]
+    t = time.perf_counter()
     answers, verdict, why, checked = ses.check(reqs, got)
+    info("judge_s", time.perf_counter() - t)
     lat = latencies(got, t0, seconds)
     info("latency", spread(got, lat))
 
@@ -294,7 +297,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         dwin = w["dwin"]
         events, mark = dwin.events(str(ses.scratch))
         answered = int(np.isfinite(got.t_done).sum())
-        rd = Readings(w["spans"], answered, w["host"], events, mark, dwin.host)
+        rd = Readings(w["spans"], answered, w["host"], events, mark, dwin.host,
+                      lat * 1e3)
         for m in cell.per_layer:
             v = spec.reader(m["name"])(rd)
             if v is not None:
@@ -380,6 +384,7 @@ def main(argv=None) -> int:
     out["checked"] = checked
     for k, c in checked.items():
         print(f"checked {k} {c['value']} limit {c['limit']}", file=sys.stderr)
+    info("run_s", time.perf_counter() - T_START)
     sys.stderr.flush()
     print(json.dumps(out), flush=True)
     return 0

@@ -46,7 +46,7 @@ def test_traced_run_reads_its_layers(tmp_path, device_tier):
     res = run_tiny(tmp_path, trace=True)
     assert res["checked"] == {"missing": 0, "wrong": 0}, res["why"]
     got = res["metrics"]
-    for name in ("prepare_ms.open", "view_ms.open", "count_ms.open"):
+    for name in ("prepare_ms.open", "view_ms.open", "count_ms.open", "tail_p95_ms.open"):
         assert got[name]["value"] > 0
     # no device on the CPU: no roofline, and the device idle throughout
     assert "count_roofline.open" not in got
@@ -139,3 +139,44 @@ def test_cell_on_the_card(card, name):
     assert res.returncode == 0 and out is not None, res.stderr[-2000:]
     assert out["correct"] and out["device"]["platform"] == "gpu"
     assert np.isfinite([m["value"] for m in out["metrics"].values()]).all()
+
+
+@pytest.mark.parametrize("buf_bytes", [1 << 10, 1 << 20])
+def test_client_reads_a_chunked_body_whole(buf_bytes):
+    """A body arrives whole, read into the client's buffer or past its end."""
+    import http.client
+    import http.server
+    import threading
+
+    from benchmark import client
+
+    chunks = [bytes([65 + k]) * (30000 + k) for k in range(3)]
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_GET(self):
+            self.send_response(200)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for c in chunks:
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(c), c))
+            self.wfile.write(b"0\r\n\r\n")
+
+        def log_message(self, *args):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=30)
+        conn.request("GET", "/")
+        buf = bytearray(buf_bytes)
+        n, rest = client.read_into(conn.getresponse(), buf)
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert bytes(buf[:n]) + rest == b"".join(chunks)
+    assert (rest == b"") == (buf_bytes > 90003)

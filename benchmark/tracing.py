@@ -138,15 +138,17 @@ def union_us(intervals: list) -> list:
 
 class Readings:
     """What the per-layer metrics read from a traced run: spans, count
-    passes, answered requests and the device's events in the window, on one
-    clock (seconds on the host's ``perf_counter``)."""
+    passes, answered requests, every request's latency in ms and the
+    device's events in the window, on one clock (seconds on the host's
+    ``perf_counter``)."""
 
     def __init__(self, spans: Spans, answered: int, window: tuple,
                  device_events: list | None = None, mark: tuple | None = None,
-                 mark_host: tuple | None = None):
+                 mark_host: tuple | None = None, latency_ms=None):
         self.spans = spans.records
         self.passes = spans.passes
         self.answered = answered
+        self.latency_ms = latency_ms
         self.t0, self.t1 = window
         self.device = []
         if device_events is not None and mark is not None:

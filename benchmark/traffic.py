@@ -1,16 +1,24 @@
 """One general generator of requests: a traffic mix (a JSON file of
 parameters under ``traffic/``) and the seed give the requests of a run.
 
-Every seed gets the same set of sizes and arrivals, in another order, so
-that two seeds differ in which samples, sites and regions a request
-touches, not in how much work the run holds:
+Every seed gets the same requests' worth of work, in another order: what
+each request holds -- its group set, the values its group templates draw,
+its filter and the quantile level of its region's length, all four
+together -- is drawn from the mix's own generator (``DESIGN``), the same
+for every seed.  The seed's generator only permutes the requests within
+each block and places the intervals, and the seed makes the cohort.  So two
+seeds differ in which samples and sites a request touches, not in how much
+work the run holds:
 
 - arrivals (open loop): ``rate_per_s x seconds`` requests, one every
   ``1 / rate_per_s`` seconds;
 - shares (which group set, whether a filter): exact counts in each block
-  of ``BLOCK`` requests, in an order drawn from the seed;
-- region lengths: quantiles of their distribution in each block, in an
-  order drawn from the seed; only their starts are drawn.
+  of ``BLOCK`` requests;
+- region lengths: one at each quantile level of their distribution in each
+  block;
+- labels, integers and windows of the group templates, and the filter
+  expressions: drawn uniformly by the mix's generator, ``fresh`` and
+  ``distinct`` redrawing.
 
 The warm-up is one request of each group set, in the mix's order, the
 first over the whole stretch: its count work passes the host tier's budget,
@@ -45,6 +53,7 @@ import numpy as np
 from . import cohort as cohort_mod
 
 BLOCK = 16
+DESIGN = 0   # the seed of the mix's own draws: what every run's requests hold
 
 
 @dataclass
@@ -123,9 +132,9 @@ class Generator:
                                * (self.hi_bp - self.lo_bp - lengths)).astype(np.int64)
         return starts, lengths
 
-    def _regions(self, rng, n: int, block: int) -> list:
+    def _regions(self, rng, u: np.ndarray) -> list:
+        """A region at each quantile level ``u`` of the mix's lengths."""
         spec = self.mix["regions"]
-        u = _strata(rng, n, block)
         if spec["kind"] == "intervals":
             if self._intervals is None:
                 self._intervals = self._interval_set(rng)
@@ -138,7 +147,7 @@ class Generator:
         if spec["kind"] == "span":
             whole = self.hi_bp - self.lo_bp + 1
             lengths = (spec["min_bp"] + u * (whole - spec["min_bp"])).astype(np.int64)
-            starts = self.lo_bp + (rng.random(n) * (whole - lengths)).astype(np.int64)
+            starts = self.lo_bp + (rng.random(len(u)) * (whole - lengths)).astype(np.int64)
             return [(int(s), int(s + ln - 1)) for s, ln in zip(starts, lengths)]
         raise ValueError(f"unknown region kind {spec['kind']!r}")
 
@@ -186,29 +195,41 @@ class Generator:
     def requests(self, n: int, stream: int, block: int | None = None,
                  which: np.ndarray | None = None, reverse_groups: bool = False,
                  whole_first: bool = False) -> list:
+        """``n`` requests, drawn from the mix's generator and then permuted
+        within each block by the seed's (with ``which``, in the order
+        given)."""
+        design = cohort_mod.rng_for(DESIGN, stream)
         rng = cohort_mod.rng_for(self.seed, stream)
         block = block or n
         mix = self.mix
         gsets = mix["group_sets"]
+        order = np.arange(n)
         if which is None:
-            which = _categories(rng, [g["share"] for g in gsets], n, block)
-        regions = self._regions(rng, n, block)
-        if whole_first:
-            regions[0] = (self.lo_bp, self.hi_bp)
+            which = _categories(design, [g["share"] for g in gsets], n, block)
+            order = np.concatenate([lo + rng.permutation(min(block, n - lo))
+                                    for lo in range(0, n, block)])
+        levels = _strata(design, n, block)
         fspec = mix.get("filters")
-        has_f = (_categories(rng, [1 - fspec["share"], fspec["share"]], n, block)
+        has_f = (_categories(design, [1 - fspec["share"], fspec["share"]], n, block)
                  if fspec else np.zeros(n, np.int64))
-        out = []
+        drawn = []
         for i in range(n):
-            groups = self._draw_groups(rng, gsets[which[i]])
-            if reverse_groups:
-                groups = groups[::-1]
+            groups = self._draw_groups(design, gsets[which[i]])
             filt = None
             if has_f[i]:
                 pool = fspec["by_groups"].get(str(len(groups)),
                                               fspec["by_groups"].get("default"))
                 if pool:
-                    filt = pool[int(rng.integers(len(pool)))]
+                    filt = pool[int(design.integers(len(pool)))]
+            drawn.append((groups, filt))
+        regions = self._regions(rng, levels[order])
+        if whole_first:
+            regions[0] = (self.lo_bp, self.hi_bp)
+        out = []
+        for i, d in enumerate(order):
+            groups, filt = drawn[d]
+            if reverse_groups:
+                groups = groups[::-1]
             beg, end = regions[i]
             q = [("s", render_group(g)) for g in groups]
             q.append(("r", f"{self.coh.chrom}:{beg}-{end}"))
